@@ -1,0 +1,81 @@
+"""Where the time of one forward of the PyTorch port goes, on a CUDA card.
+
+Builds ``videoprism_public_v1_base`` in bf16 with seeded random weights,
+warms up, then traces forwards with ``torch.profiler`` and prints the
+device time per kernel name, the share of each, and the device's idle
+share (wall time of the traced forwards minus the device time of their
+kernels, over the wall time).
+
+    python scripts/profile_torch_forward.py --batch 8 [--impl reference]
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from videoprism_tpu_torch.io.checkpoints import prepare_for_kernels  # noqa: E402
+from videoprism_tpu_torch.models import registry  # noqa: E402
+
+
+def main() -> None:
+  parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+  parser.add_argument('--batch', type=int, default=8)
+  parser.add_argument('--impl', default='kernel',
+                      choices=('kernel', 'reference'))
+  parser.add_argument('--iters', type=int, default=3)
+  parser.add_argument('--top', type=int, default=12)
+  args = parser.parse_args()
+  if not torch.cuda.is_available():
+    sys.exit('profile_torch_forward: needs a CUDA device')
+
+  device = torch.device('cuda', 0)
+  model = registry.get_model('videoprism_public_v1_base',
+                             fprop_dtype=torch.bfloat16)
+  params = prepare_for_kernels(
+      model.init(0, device=device, norm_bias_std=0.1)['params'])
+  gen = torch.Generator(device=device).manual_seed(0)
+  video = torch.rand((args.batch, 16, 288, 288, 3), generator=gen,
+                     device=device)
+  forward = lambda: model.apply(params, video, impl=args.impl)
+  for _ in range(2):
+    forward()
+  torch.cuda.synchronize()
+
+  activities = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+  with torch.profiler.profile(activities=activities) as prof:
+    start = time.perf_counter()
+    for _ in range(args.iters):
+      forward()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - start) * 1000.0 / args.iters
+
+  per_kernel = collections.defaultdict(lambda: [0, 0.0])
+  for evt in prof.events():
+    if evt.device_type == torch.autograd.DeviceType.CUDA:
+      per_kernel[evt.name][0] += 1
+      per_kernel[evt.name][1] += evt.time_range.elapsed_us() / 1000.0
+  device_ms = sum(ms for _, ms in per_kernel.values()) / args.iters
+  smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                        '--format=csv,noheader'], capture_output=True,
+                       text=True, check=False).stdout.strip()
+  print(f'{smi}; B={args.batch} impl={args.impl}: wall {wall_ms:.3f} '
+        f'ms/forward (host clock, profiler on), device {device_ms:.3f} ms, '
+        f'idle share {max(0.0, 1.0 - device_ms / wall_ms):.3f}')
+  ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])
+  for name, (calls, ms) in ranked[:args.top]:
+    print(f'  {ms / args.iters:9.3f} ms  {100.0 * ms / args.iters / device_ms:5.1f} %'
+          f'  {calls // args.iters:4d} calls  {name[:100]}')
+
+
+if __name__ == '__main__':
+  main()

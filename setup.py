@@ -14,6 +14,9 @@ setup(
     package_data={
         'videoprism_tpu': ['assets/demo.mp4', 'assets/testdata/*.model',
                            'native/*.cc'],
+        # The PyTorch port's hand-written CUDA kernels, built with nvcc at
+        # first use on the card.
+        'videoprism_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh'],
     },
     python_requires='>=3.10',
     install_requires=[

@@ -1,0 +1,175 @@
+"""videoprism_tpu_torch's param tree, weight bridge, registry and golden
+fixture against the JAX package, on the CPU."""
+
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from videoprism_tpu.io import checkpoints as jckpt
+from videoprism_tpu.models import factorized_encoder as jfe
+from videoprism_tpu.models import init as jinit
+from videoprism_tpu.models import registry as jreg
+import videoprism_tpu_torch as vpt
+from videoprism_tpu_torch.io import checkpoints as tckpt
+from videoprism_tpu_torch.models import factorized_encoder as tfe
+from videoprism_tpu_torch.models import init as tinit
+from videoprism_tpu_torch.models import registry as treg
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(_ROOT, 'scripts'))
+
+import make_torch_port_golden as golden  # noqa: E402
+
+GOLDEN = os.path.join(_ROOT, 'tests', 'data', 'torch_port_golden.npz')
+TINY = tfe.FactorizedEncoderConfig(
+    **golden.CONFIG | {'pos_emb_shape': tuple(golden.CONFIG['pos_emb_shape'])})
+
+
+def _flat(tree, prefix=''):
+  out = {}
+  for k, v in tree.items():
+    if isinstance(v, dict):
+      out.update(_flat(v, f'{prefix}{k}/'))
+    else:
+      out[prefix + k] = tuple(v.shape)
+  return out
+
+
+def test_param_tree_matches_jax():
+  """Base config: leaf names and shapes equal the JAX init's
+  (scan-stacked layout)."""
+  name = 'videoprism_v1_base'
+  jcfg = jfe.FactorizedEncoderConfig(**jreg.CONFIGS[name])
+  want = jax.eval_shape(
+      lambda: jinit.init_factorized_encoder(jax.random.PRNGKey(0), jcfg))
+  got = tinit.numpy_factorized_encoder(
+      0, tfe.FactorizedEncoderConfig(**treg.CONFIGS[name]))
+  assert _flat(got) == _flat(want)
+
+
+def test_configs_match_jax():
+  for name, cfg in treg.CONFIGS.items():
+    assert cfg == jreg.CONFIGS[name]
+  assert set(treg.MODELS) <= set(jreg.MODELS)
+
+
+def test_init_is_seeded():
+  cfg = TINY
+  a = tinit.numpy_factorized_encoder(3, cfg, norm_bias_std=0.1)
+  b = tinit.numpy_factorized_encoder(3, cfg, norm_bias_std=0.1)
+  c = tinit.numpy_factorized_encoder(4, cfg)
+  ka = jckpt.tree_flatten_with_names(a)
+  kb = dict(jckpt.tree_flatten_with_names(b))
+  for k, v in ka:
+    np.testing.assert_array_equal(v, kb[k])
+  ln = c['spatial_ln']
+  assert not ln['scale'].any() and not ln['bias'].any()
+  assert a['spatial_ln']['scale'].any()
+
+
+def test_bridge_round_trips():
+  cfg = TINY
+  tree = tinit.numpy_factorized_encoder(0, cfg, norm_bias_std=0.1)
+  tree['step'] = np.array(7, np.int32)
+  params = tckpt.params_from_numpy(tree)
+  back = {k: v.numpy() for k, v in
+          jckpt.tree_flatten_with_names(jax.tree.map(lambda t: t, params))}
+  for k, v in jckpt.tree_flatten_with_names(tree):
+    np.testing.assert_array_equal(back[k], v)
+  assert params['step'].dtype == torch.int32
+  # bf16 numpy leaves (as JAX hands them out) go through float32.
+  bf = tckpt.params_from_numpy({'w': np.ones(3, ml_dtypes.bfloat16)},
+                               dtype=torch.bfloat16)
+  assert bf['w'].dtype == torch.bfloat16 and bf['w'].sum().item() == 3.0
+
+
+def test_load_checkpoint_npz_and_pretrained(tmp_path):
+  cfg = TINY
+  tree = tinit.numpy_factorized_encoder(0, cfg, norm_bias_std=0.1)
+  path = str(tmp_path / 'ckpt.npz')
+  jckpt.save_checkpoint(path, tree)   # the JAX package's flat-key writer
+  loaded = tckpt.load_checkpoint(path)
+  assert jckpt.tree_flatten_with_names(loaded)[0][0] == \
+      jckpt.tree_flatten_with_names(tree)[0][0]
+  params = treg.load_pretrained_weights('videoprism_public_v1_base',
+                                        checkpoint_path=path)
+  np.testing.assert_array_equal(
+      params['spatial_encoder']['transformers_stack']['x_layers'][
+          'self_attention']['query']['w'].numpy(),
+      tree['spatial_encoder']['transformers_stack']['x_layers'][
+          'self_attention']['query']['w'])
+  with pytest.raises(ValueError, match='checkpoint_path'):
+    treg.load_pretrained_weights('videoprism_public_v1_base')
+
+
+def test_prepare_for_kernels_fuses_projections():
+  cfg = TINY
+  params = tinit.init_factorized_encoder(0, cfg, dtype=torch.bfloat16)
+  prepared = tckpt.prepare_for_kernels(params)
+  attn = prepared['temporal_encoder']['transformers_stack']['x_layers'][
+      'self_attention']
+  assert tuple(attn['fused']['wqkv'].shape) == (2, 128, 3 * 128)
+  assert tuple(attn['fused']['bqkv'].shape) == (2, 3 * 128)
+  assert tuple(attn['fused']['wo'].shape) == (2, 128, 128)
+  assert attn['fused']['wqkv'].dtype == torch.bfloat16
+  wq = attn['query']['w'][1].reshape(128, 128)
+  assert torch.equal(attn['fused']['wqkv'][1, :, :128], wq)
+  assert 'fused' not in params['temporal_encoder']['transformers_stack'][
+      'x_layers']['self_attention']
+
+
+def test_registry_surface():
+  assert vpt.has_model('videoprism_public_v1_base')
+  assert vpt.has_model('google/videoprism-large-f8r288')
+  assert not vpt.has_model('videoprism_lvt_public_v1_base')
+  model = vpt.get_model('google/videoprism-base-f16r288',
+                        fprop_dtype=torch.bfloat16)
+  assert model.config.dtype == torch.bfloat16
+  assert model.config.model_dim == 768 and model.config.atten_logit_cap == 50.0
+  with pytest.raises(NotImplementedError, match='ROADMAP'):
+    vpt.get_model('videoprism_lvt_public_v1_base')
+  with pytest.raises(ValueError, match='not found'):
+    vpt.get_model('videoprism_public_v9')
+
+
+def test_model_apply_takes_params_wrapper():
+  model = treg.Model(TINY)
+  variables = model.init(0, norm_bias_std=0.1)
+  video = torch.from_numpy(np.random.default_rng(0).standard_normal(
+      (1, 4, 24, 24, 3)).astype(np.float32))
+  a, _ = model.apply(variables, video)
+  b, _ = model.apply(variables['params'], video, impl='reference')
+  assert tuple(a.shape) == (1, 64, 128) and torch.equal(a, b)
+
+
+def test_package_imports_without_jax():
+  code = ('import sys, videoprism_tpu_torch, videoprism_tpu_torch.ops.kernels.'
+          'cases; assert "jax" not in sys.modules, sorted(sys.modules); '
+          'assert not any(m.startswith("videoprism_tpu.") or '
+          'm == "videoprism_tpu" for m in sys.modules)')
+  subprocess.run([sys.executable, '-c', code], check=True, cwd=_ROOT,
+                 timeout=120)
+
+
+def test_golden_fixture_regenerates_and_port_matches():
+  stored = np.load(GOLDEN)
+  fresh = golden.make_golden()
+  assert json.loads(str(stored['config'])) == golden.CONFIG
+  np.testing.assert_allclose(fresh['output'], stored['output'], atol=2e-5,
+                             rtol=0)
+  cfg = TINY
+  params = tinit.init_factorized_encoder(
+      int(stored['param_seed']), cfg,
+      norm_bias_std=float(stored['norm_bias_std']))
+  video = np.random.default_rng(int(stored['video_seed'])).standard_normal(
+      tuple(stored['video_shape'])).astype(np.float32)
+  got, _ = tfe.apply(params, torch.from_numpy(video), cfg)
+  np.testing.assert_allclose(got.numpy(), stored['output'], atol=2e-5, rtol=0)
+  assert os.path.getsize(GOLDEN) < 200_000

@@ -1,0 +1,116 @@
+"""Random parameter trees for the factorized encoder (port of
+``videoprism_tpu.models.init``).
+
+The tree has the nesting, leaf names and shapes of the JAX package's
+``init_factorized_encoder`` (and so of the public "repeated" checkpoints),
+including the stacked leading layer axis.  Values come from
+``numpy.random.default_rng(seed)``: truncated-normal LeCun kernels as in
+flax, zero biases and LN parameters unless ``norm_bias_std`` asks for
+non-zero ones (tests use that so a dropped bias or LN term shows).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from videoprism_tpu_torch.io.checkpoints import params_from_numpy
+from videoprism_tpu_torch.models import factorized_encoder as fe
+from videoprism_tpu_torch.ops.transformer import TransformerLayerConfig
+
+Params = dict[str, Any]
+
+
+class _Init:
+  """Draws every leaf from one generator, in tree order."""
+
+  def __init__(self, seed: int, norm_bias_std: float):
+    self.rng = np.random.default_rng(seed)
+    self.std = norm_bias_std
+
+  def lecun(self, shape: tuple[int, ...]) -> np.ndarray:
+    """flax lecun_normal: truncated normal in [-2, 2], fan-in variance."""
+    fan_in = shape[-2] * int(np.prod(shape[:-2]))
+    x = self.rng.standard_normal(shape, dtype=np.float32)
+    bad = np.abs(x) > 2.0
+    while bad.any():
+      x[bad] = self.rng.standard_normal(int(bad.sum()), dtype=np.float32)
+      bad = np.abs(x) > 2.0
+    return x * np.float32(np.sqrt(1.0 / fan_in) / 0.87962566103423978)
+
+  def small(self, shape: tuple[int, ...]) -> np.ndarray:
+    """A bias or LN parameter: zeros, or normal(0, std) when std > 0."""
+    if self.std > 0.0:
+      return (self.std * self.rng.standard_normal(shape)).astype(np.float32)
+    return np.zeros(shape, np.float32)
+
+  def dense(self, d_in: int, d_out: int) -> Params:
+    return {'linear': {'kernel': self.lecun((d_in, d_out)),
+                       'bias': self.small((d_out,))}}
+
+  def layer_norm(self, d: int) -> Params:
+    return {'scale': self.small((d,)), 'bias': self.small((d,))}
+
+  def layer(self, d: int, cfg: TransformerLayerConfig) -> Params:
+    if cfg.norm_policy != 'pre':
+      raise NotImplementedError(
+          f'norm_policy={cfg.norm_policy!r} is not ported yet; see ROADMAP.md')
+    n = cfg.num_heads
+    h = d // n
+    proj = lambda: {'w': self.lecun((d, n, h)), 'b': self.small((n, h))}
+    attn = {'query': proj(), 'key': proj(), 'value': proj(),
+            'post': {'w': self.lecun((d, n, h)), 'b': self.small((d,))}}
+    if cfg.enable_per_dim_scale:
+      attn['per_dim_scale'] = {'per_dim_scale': self.small((h,))}
+    return {
+        'layer_norm': self.layer_norm(d),
+        'self_attention': attn,
+        'ff_layer': {'layer_norm': self.layer_norm(d),
+                     'ffn_layer1': self.dense(d, cfg.hidden_dim),
+                     'ffn_layer2': self.dense(cfg.hidden_dim, d)},
+    }
+
+  def vision_transformer(self, d: int, cfg: TransformerLayerConfig) -> Params:
+    layers = [self.layer(d, cfg) for _ in range(cfg.num_layers)]
+    if cfg.scan:
+      stack = {'x_layers': _stack(layers)}
+    else:
+      stack = {f'x_layers_{i}': layer for i, layer in enumerate(layers)}
+    return {'transformers_stack': stack}
+
+
+def _stack(trees: list[Params]) -> Params:
+  if isinstance(trees[0], dict):
+    return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+  return np.stack(trees)
+
+
+def numpy_factorized_encoder(seed: int, cfg: fe.FactorizedEncoderConfig, *,
+                             norm_bias_std: float = 0.0) -> Params:
+  """The encoder's param tree as float32 numpy arrays."""
+  init = _Init(seed, norm_bias_std)
+  d = cfg.model_dim
+  t, gh, gw = cfg.pos_emb_shape
+  return {
+      'patch_projection': init.dense(cfg.patch_size ** 2 * 3, d),
+      'spatial_pos_emb': {'emb_var': init.lecun((gh * gw, d))},
+      'spatial_encoder': init.vision_transformer(
+          d, cfg.vit_layer_config(cfg.num_spatial_layers)),
+      'spatial_ln': init.layer_norm(d),
+      'temporal_pos_emb': {'emb_var': init.lecun((t, d))},
+      'temporal_encoder': init.vision_transformer(
+          d, cfg.vit_layer_config(cfg.num_temporal_layers)),
+      'temporal_ln': init.layer_norm(d),
+  }
+
+
+def init_factorized_encoder(seed: int, cfg: fe.FactorizedEncoderConfig, *,
+                            device: torch.device | str = 'cpu',
+                            dtype: torch.dtype = torch.float32,
+                            norm_bias_std: float = 0.0) -> Params:
+  """Param tree for ``factorized_encoder.apply``, as tensors on ``device``."""
+  return params_from_numpy(
+      numpy_factorized_encoder(seed, cfg, norm_bias_std=norm_bias_std),
+      device=device, dtype=dtype)

@@ -1,0 +1,163 @@
+"""Build, load and launch the hand-written Hopper kernels of ``csrc/``.
+
+The CUDA sources are compiled at first use with ``nvcc`` for ``sm_90a``
+into one shared library with a plain C interface, cached under
+``build/videoprism_tpu_torch/`` by a hash of the sources and flags, and
+loaded with ``ctypes``.  Each C entry point launches on the stream it is
+given and returns ``cudaGetLastError()``; :func:`launch` raises when that is
+not 0.  Nothing here runs at import: a CPU-only install imports every module
+and never builds.
+
+Dispatch rule of every kernel wrapper (:func:`use_kernel`): ``impl='auto'``
+runs the kernel for a CUDA tensor and the plain PyTorch twin for a CPU
+tensor; ``impl='kernel'`` on a CPU tensor raises; ``impl='reference'`` runs
+the twin anywhere.  On CUDA nothing falls back: a shape or dtype the kernel
+does not take raises ``ValueError``.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[2] / 'csrc'
+BUILD_DIR = Path(__file__).resolve().parents[3] / 'build' / 'videoprism_tpu_torch'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+IMPLS = ('auto', 'kernel', 'reference')
+
+# Launches per kernel wrapper: each wrapper adds one where it launches its
+# kernel chain and nowhere else.
+LAUNCHES: collections.Counter = collections.Counter()
+
+# Argument codes of the C entry points: p pointer (or the stream), i int,
+# f float.  The stream is appended by launch().
+_SIGNATURES = {
+    'vp_attention_block': 'pppppppppppp' 'iiiiiii' 'fff' 'p',
+    'vp_ffn_block': 'ppppppppppp' 'iiii' 'f' 'p',
+    'vp_spatial_to_temporal': 'ppppp' 'iiii' 'f' 'p',
+    'vp_temporal_to_output': 'pppp' 'iiii' 'f' 'p',
+}
+_CTYPES = {'p': ctypes.c_void_p, 'i': ctypes.c_int, 'f': ctypes.c_float}
+
+
+def reset_launches() -> None:
+  LAUNCHES.clear()
+
+
+def use_kernel(impl: str, x: torch.Tensor) -> bool:
+  """Whether a wrapper given ``x`` runs its kernel (see module docstring)."""
+  if impl not in IMPLS:
+    raise ValueError(f'impl must be one of {IMPLS}, got {impl!r}')
+  if impl == 'reference':
+    return False
+  if x.is_cuda:
+    return True
+  if impl == 'kernel':
+    raise ValueError(
+        f"impl='kernel' needs CUDA tensors; got a tensor on {x.device}")
+  return False
+
+
+def check(cond: bool, msg: str) -> None:
+  if not cond:
+    raise ValueError(msg)
+
+
+def check_tensors(device: torch.device, **tensors: torch.Tensor) -> None:
+  """Every kernel operand: on ``device``, contiguous, 16-byte aligned, and
+  bf16 (masks: fp32)."""
+  for name, t in tensors.items():
+    want = torch.float32 if name == 'mask' else torch.bfloat16
+    check(t.device == device, f'{name} is on {t.device}, expected {device}')
+    check(t.dtype == want,
+          f'{name} is {t.dtype}; the kernel takes {want} (fp32 activations '
+          "run only with impl='reference')")
+    check(t.is_contiguous(), f'{name} must be contiguous')
+    check(t.data_ptr() % 16 == 0, f'{name} must be 16-byte aligned')
+
+
+@dataclasses.dataclass(frozen=True)
+class Build:
+  path: Path
+  seconds: float   # compile time, 0.0 when the cached library was reused
+  log: str         # nvcc / ptxas output (registers, shared memory, spills)
+
+
+def _nvcc() -> str:
+  found = shutil.which('nvcc')
+  if found:
+    return found
+  cuda_home = os.environ.get('CUDA_HOME', '/usr/local/cuda')
+  return str(Path(cuda_home) / 'bin' / 'nvcc')
+
+
+@functools.cache
+def build() -> Build:
+  """Compiles ``csrc/*.cu`` once per source hash; returns the library."""
+  sources = sorted(CSRC.glob('*.cu'))
+  digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+  for f in sorted(CSRC.glob('*.cu*')):
+    digest.update(f.name.encode())
+    digest.update(f.read_bytes())
+  path = BUILD_DIR / f'libvp_kernels_{digest.hexdigest()[:16]}.so'
+  log_path = path.with_suffix('.log')
+  if path.exists() and log_path.exists():
+    return Build(path, 0.0, log_path.read_text())
+  BUILD_DIR.mkdir(parents=True, exist_ok=True)
+  tmp = path.with_name(f'{path.stem}.{os.getpid()}.tmp.so')
+  cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), *map(str, sources)]
+  start = time.perf_counter()
+  proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+  seconds = time.perf_counter() - start
+  log = proc.stdout + proc.stderr
+  if proc.returncode != 0:
+    raise RuntimeError(f'nvcc failed ({proc.returncode}):\n{" ".join(cmd)}\n{log}')
+  log_path.write_text(log)
+  os.replace(tmp, path)
+  return Build(path, seconds, log)
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+  lib = ctypes.CDLL(str(build().path))
+  for name, codes in _SIGNATURES.items():
+    fn = getattr(lib, name)
+    fn.argtypes = [_CTYPES[c] for c in codes]
+    fn.restype = ctypes.c_int
+  lib.vp_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+  lib.vp_attention_smem_bytes.restype = ctypes.c_size_t
+  lib.vp_error_string.argtypes = [ctypes.c_int]
+  lib.vp_error_string.restype = ctypes.c_char_p
+  return lib
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+  """Calls C entry point ``name`` on the current stream of ``device``."""
+  lib = library()
+  codes = _SIGNATURES[name][:-1]
+  if len(args) != len(codes):
+    raise TypeError(f'{name} takes {len(codes)} arguments, got {len(args)}')
+  converted = []
+  for code, arg in zip(codes, args):
+    if code == 'p':
+      converted.append(None if arg is None else arg.data_ptr())
+    elif code == 'i':
+      converted.append(int(arg))
+    else:
+      converted.append(float(arg))
+  with torch.cuda.device(device):
+    err = getattr(lib, name)(*converted, torch.cuda.current_stream().cuda_stream)
+  if err != 0:
+    raise RuntimeError(
+        f'{name} failed to launch: {lib.vp_error_string(err).decode()} ({err})')

@@ -1,0 +1,164 @@
+"""Transformer layer and layer stack (port of
+``videoprism_tpu.ops.transformer``).
+
+A 'pre'-policy layer with bias, gelu/relu and no per-dim scale (every layer
+of the video encoder) runs as two fused half-layers, K1
+``fused_attention_block`` and K2 ``fused_ffn_block``
+(``ops/kernels/transformer_block.py``), mirroring the JAX package's gate in
+``_try_fused_layer``.  Other 'pre' layers run the composed path
+(``multi_head_attention`` + :func:`transformer_ffn`).  The stack is a Python
+loop over the leading layer axis of ``x_layers`` (or over ``x_layers_{i}``
+when ``scan=False``); the JAX package's ``lax.scan``, remat and 128-row
+small-sequence packing have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from videoprism_tpu_torch.ops import attention as attention_lib
+from videoprism_tpu_torch.ops import basic
+from videoprism_tpu_torch.ops import masks as mask_lib
+from videoprism_tpu_torch.ops.kernels import transformer_block as tb
+
+Params = dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerLayerConfig:
+  """The fields of the JAX package's config that the encoder reads."""
+
+  num_layers: int = 0
+  hidden_dim: int = 0           # FFN hidden dim
+  num_heads: int = 0
+  norm_policy: str = 'pre'
+  activation: str = 'relu'
+  enable_per_dim_scale: bool = True
+  logit_cap: float = 0.0
+  enable_causal_atten: bool = False
+  scan: bool = True             # weights stacked under x_layers
+  dtype: torch.dtype = torch.float32
+
+
+def _check_policy(cfg: TransformerLayerConfig) -> None:
+  if cfg.norm_policy != 'pre':
+    raise NotImplementedError(
+        f'norm_policy={cfg.norm_policy!r} is not ported yet (only "pre"); '
+        'see ROADMAP.md, queue 1 item 3')
+
+
+def transformer_ffn(params: Params, inputs: torch.Tensor,
+                    paddings: torch.Tensor | None,
+                    cfg: TransformerLayerConfig) -> torch.Tensor:
+  """Composed pre-norm FFN with residual and padding zeroing."""
+  _check_policy(cfg)
+  dtype = cfg.dtype
+  if paddings is not None:
+    paddings = paddings[..., None].to(inputs.dtype)
+  x = basic.layer_norm(params['layer_norm'], inputs, dtype=dtype)
+  x = basic.feed_forward(params['ffn_layer1'], x, activation=cfg.activation,
+                         dtype=dtype)
+  if paddings is not None:
+    x = x * (1.0 - paddings)
+  x = basic.feed_forward(params['ffn_layer2'], x, activation='identity',
+                         dtype=dtype)
+  if paddings is not None:
+    x = x * (1.0 - paddings)
+  return inputs + x
+
+
+def fused_layer_supported(cfg: TransformerLayerConfig) -> bool:
+  """Whether a layer runs as K1 + K2 (the JAX gate of _try_fused_layer)."""
+  return (cfg.norm_policy == 'pre' and not cfg.enable_per_dim_scale
+          and cfg.activation in ('gelu', 'relu'))
+
+
+def fused_attention_weights(attn: Params, dtype: torch.dtype
+                            ) -> dict[str, torch.Tensor]:
+  """Wqkv [D, 3*N*H], bqkv [3*N*H] and Wo [N*H, D] from (D, N, H) weights.
+
+  Leading (layer) axes are kept, so this serves one layer or a stack.
+  """
+  cast = lambda a: basic.cast_floating(a, dtype)
+  flat = lambda name: cast(attn[name]['w']).flatten(-2)
+  return {
+      'wqkv': torch.cat([flat('query'), flat('key'), flat('value')], dim=-1),
+      'bqkv': torch.cat([cast(attn[n]['b']).flatten(-2)
+                         for n in ('query', 'key', 'value')], dim=-1),
+      'wo': flat('post').transpose(-1, -2).contiguous(),
+  }
+
+
+def transformer_layer(params: Params, inputs: torch.Tensor,
+                      paddings: torch.Tensor | None,
+                      atten_mask: torch.Tensor,
+                      cfg: TransformerLayerConfig, *,
+                      impl: str = 'auto') -> torch.Tensor:
+  """One pre-norm self-attention + FFN layer on [B, T, D].
+
+  ``params['self_attention']['fused']`` (from ``prepare_for_kernels``) holds
+  the fused projection weights; without it they are built on every call.
+  """
+  _check_policy(cfg)
+  dtype = cfg.dtype
+  if not fused_layer_supported(cfg):
+    normed = basic.layer_norm(params['layer_norm'], inputs, dtype=dtype)
+    x = inputs + attention_lib.multi_head_attention(
+        params['self_attention'], normed, normed, normed, atten_mask,
+        hidden_dim=inputs.shape[-1], num_heads=cfg.num_heads,
+        logit_cap=cfg.logit_cap,
+        enable_per_dim_scale=cfg.enable_per_dim_scale, dtype=dtype)
+    return transformer_ffn(params['ff_layer'], x, paddings, cfg)
+
+  b, t, d = inputs.shape
+  attn = params['self_attention']
+  _, n, h = attn['query']['w'].shape
+  fused = attn.get('fused') or fused_attention_weights(attn, dtype)
+  cast = lambda a: basic.cast_floating(a, dtype)
+  x = tb.fused_attention_block(
+      inputs, atten_mask.squeeze(1).float(),
+      cast(params['layer_norm']['scale']), cast(params['layer_norm']['bias']),
+      cast(fused['wqkv']), cast(fused['bqkv']), cast(fused['wo']),
+      cast(attn['post']['b']),
+      num_heads=n, dim_per_head=h, logit_cap=cfg.logit_cap, epsilon=1e-6,
+      query_scale=h ** -0.5, impl=impl)
+
+  ff = params['ff_layer']
+  pad_rows = (paddings.reshape(b * t, 1).to(dtype) if paddings is not None
+              else torch.zeros((b * t, 1), dtype=dtype, device=inputs.device))
+  out = tb.fused_ffn_block(
+      x.reshape(b * t, d), pad_rows,
+      cast(ff['layer_norm']['scale']), cast(ff['layer_norm']['bias']),
+      cast(ff['ffn_layer1']['linear']['kernel']),
+      cast(ff['ffn_layer1']['linear']['bias']),
+      cast(ff['ffn_layer2']['linear']['kernel']),
+      cast(ff['ffn_layer2']['linear']['bias']),
+      activation=cfg.activation, epsilon=1e-6, impl=impl)
+  return out.reshape(b, t, d)
+
+
+def _layer_slice(tree, i: int):
+  if isinstance(tree, dict):
+    return {k: _layer_slice(v, i) for k, v in tree.items()}
+  return tree[i]
+
+
+def stacked_transformer(params: Params, inputs: torch.Tensor,
+                        paddings: torch.Tensor, cfg: TransformerLayerConfig,
+                        *, impl: str = 'auto') -> torch.Tensor:
+  """``cfg.num_layers`` layers over [B, T, D].
+
+  With ``cfg.scan`` the weights live under ``x_layers`` with a leading layer
+  axis (the "repeated" checkpoint layout), else under ``x_layers_{i}``.
+  """
+  atten_mask = mask_lib.attention_mask_for_fprop(
+      inputs, paddings, causal_attention=cfg.enable_causal_atten)
+  out = inputs
+  for i in range(cfg.num_layers):
+    layer = (_layer_slice(params['x_layers'], i) if cfg.scan
+             else params[f'x_layers_{i}'])
+    out = transformer_layer(layer, out, paddings, atten_mask, cfg, impl=impl)
+  return out
