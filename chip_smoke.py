@@ -1,26 +1,39 @@
-"""Drives the PyTorch port's main path on one CUDA card and checks it.
+"""Drives the PyTorch port's paths on one CUDA card and checks them.
 
     python3 chip_smoke.py
 
 Phases (each prints its lines; any failure exits non-zero and prints no
 result):
-  1. device   the card's name, count, and nvidia-smi name / power limit;
-  2. build    nvcc builds videoprism_tpu_torch/csrc for sm_90a; build time
-              and each kernel's registers, shared memory and spills;
-  3. kernels  every kernel against its plain twin at the base encoder's
-              shapes for two clips (ops/kernels/cases.py tolerances), and
-              each kernel's time beside its twin's;
-  4. model    get_model('videoprism_public_v1_base') in bf16 with seeded
-              random weights answers three requests (1, 2 and 8 clips of
-              16x288x288x3) through the kernels: [B, 4096, 768], finite,
-              16/16/1/1 launches of K1/K2/K3/K4 per forward; the 2-clip
-              output against impl='reference' in bf16 and in fp32;
-  5. golden   the tiny config of tests/data/torch_port_golden.npz through
-              the kernels in bf16 against the JAX package's fp32 output;
-  6. times    the full forward, kernel path and impl='reference', at 1 and
-              8 clips, with CUDA events after warm-up.
-The line before the last is the per-kernel JSON record; the last line is
-{"ok": true, "device": {...}}.
+  1. device       the card's name, count, and nvidia-smi name / power limit;
+  2. build        nvcc builds videoprism_tpu_torch/csrc for sm_90a, one
+                  process per source, all at once; build time and each
+                  kernel's registers, shared memory and spills;
+  3. kernels      every kernel against its plain twin at the shapes of the
+                  encoder path and the CLIP path for two requests
+                  (ops/kernels/cases.py tolerances), and each kernel's time
+                  per call (CUDA events) and on the device (profiler)
+                  beside its twin's, its bound and a library call's;
+  4. model        get_model('videoprism_public_v1_base') in bf16 with seeded
+                  random weights answers three requests (1, 2 and 8 clips of
+                  16x288x288x3) through the kernels: [B, 4096, 768], finite,
+                  16/16/1/1 launches of K1/K2/K3/K4 per forward; the 2-clip
+                  output against impl='reference' in bf16 and in fp32;
+  5. golden       the tiny config of tests/data/torch_port_golden.npz through
+                  the kernels in bf16 against the JAX package's fp32 output;
+  6. clip         get_model('videoprism_lvt_public_v1_base') in bf16 answers
+                  video (B=1), video + text (B=2) and text (B=8) requests:
+                  [B, 768] embeddings, finite, the launches of K1-K6 each
+                  request's path makes; the B=2 embeddings against
+                  impl='reference' in bf16 and in fp32;
+  7. clip-golden  the tiny CLIP config of tests/data/torch_port_clip_golden.npz
+                  through the kernels in bf16 against the JAX package's fp32
+                  embeddings;
+  8. times        the encoder forward and the video + text CLIP request,
+                  kernel path and impl='reference', at 1 and 8, with CUDA
+                  events after warm-up.
+Counts of kernel launches are set to 0 before each path's phase (4 and 6)
+and read after it.  The line before the last is the per-kernel JSON record;
+the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -39,6 +52,7 @@ from videoprism_tpu_torch.io.checkpoints import (
     params_from_numpy,
     prepare_for_kernels,
 )
+from videoprism_tpu_torch.models import clip as clip_lib
 from videoprism_tpu_torch.models import factorized_encoder as fe
 from videoprism_tpu_torch.models import init as init_lib
 from videoprism_tpu_torch.models import registry
@@ -47,13 +61,22 @@ from videoprism_tpu_torch.ops.kernels import cases as cases_lib
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, 'tests', 'data', 'torch_port_golden.npz')
-# Per-token cosine to the reference that every model-level check demands.
+CLIP_GOLDEN = os.path.join(ROOT, 'tests', 'data',
+                           'torch_port_clip_golden.npz')
+# Per-token (per-embedding) cosine to the reference that every model-level
+# check demands.
 MIN_COSINE = 0.999
 # Golden, bf16 kernels vs the JAX fp32 output: the outputs are post-LN with
 # |max| ~4.3, where one bf16 ulp is 0.03; four layers of bf16 rounding put
 # the bf16 twin at 0.033 max error on the CPU.  0.1 leaves 3x margin.
 GOLDEN_ATOL = 0.1
+# CLIP golden: l2-normalised embeddings with |max| 0.42, where one bf16
+# ulp is 0.002; the bf16 twin is at 0.0029 max error on the CPU.  0.01
+# leaves 3x margin.
+CLIP_GOLDEN_ATOL = 0.01
 FRAMES, SIZE = 16, 288
+TEXT_LEN = 64
+CLIP_MODEL = 'videoprism_lvt_public_v1_base'
 
 KERNELS = {  # wrapper -> (hand-written source, TPU kernel it replaces)
     'fused_attention_block': (
@@ -68,11 +91,31 @@ KERNELS = {  # wrapper -> (hand-written source, TPU kernel it replaces)
     'temporal_to_output': (
         'videoprism_tpu_torch/csrc/ln_rows.cu',
         'videoprism_tpu/ops/pallas/boundary.py:121'),
+    'fused_attention': (
+        'videoprism_tpu_torch/csrc/flash_attention.cu',
+        'videoprism_tpu/ops/pallas/flash_attention.py:109'),
+    'fused_layer_norm_2d': (
+        'videoprism_tpu_torch/csrc/ln_rows.cu',
+        'videoprism_tpu/ops/pallas/layer_norm.py:46'),
 }
 DEVICE_KERNELS = ('ln_rows_kernel', 'gemm_bf16_kernel',
-                  'capped_attention_kernel')
-PER_FORWARD = {'fused_attention_block': 16, 'fused_ffn_block': 16,
-               'spatial_to_temporal': 1, 'temporal_to_output': 1}
+                  'capped_attention_kernel', 'flash_attention_kernel')
+_ENCODER = {'fused_attention_block': 16, 'fused_ffn_block': 16,
+            'spatial_to_temporal': 1, 'temporal_to_output': 1}
+PER_FORWARD = {k: _ENCODER.get(k, 0) for k in KERNELS}
+# Launches per CLIP request of lvt base.  Video: the encoder, then 2
+# auxiliary layers over 4096 tokens (K6 LN + K5 attention + K2 each) and
+# the pooler's output LN (K6).  Text: 12 layers over 65 tokens (K1 + K2)
+# and unimodal_ln (K6).
+_VIDEO = dict(_ENCODER, fused_ffn_block=18, fused_attention=2,
+              fused_layer_norm_2d=3)
+_TEXT = {'fused_attention_block': 12, 'fused_ffn_block': 12,
+         'fused_layer_norm_2d': 1}
+PER_CLIP_REQUEST = {
+    'video': {k: _VIDEO.get(k, 0) for k in KERNELS},
+    'text': {k: _TEXT.get(k, 0) for k in KERNELS},
+    'video+text': {k: _VIDEO.get(k, 0) + _TEXT.get(k, 0) for k in KERNELS},
+}
 
 
 class SmokeFailure(Exception):
@@ -99,9 +142,32 @@ def cuda_ms(fn, *, warmup: int, iters: int) -> float:
   return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, *, iters: int) -> float:
+  """Device time per call of ``fn()`` in ms: the summed durations of the
+  kernels it launches, by torch.profiler, over ``iters`` calls after one
+  warm-up.  Unlike :func:`cuda_ms` it leaves out the host's time between
+  launches, which bounds short kernels called from Python."""
+  fn()
+  torch.cuda.synchronize()
+  activities = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+  with torch.profiler.profile(activities=activities) as prof:
+    for _ in range(iters):
+      fn()
+    torch.cuda.synchronize()
+  total_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+  check(total_us > 0, 'the profiler saw no device time')
+  return total_us / 1000.0 / iters
+
+
 def cosine_per_token(a: torch.Tensor, b: torch.Tensor) -> float:
   return torch.nn.functional.cosine_similarity(
       a.float(), b.float(), dim=-1).min().item()
+
+
+def launches_since(before: dict) -> dict:
+  return {k: _lib.LAUNCHES[k] - before.get(k, 0) for k in KERNELS}
 
 
 def phase_device() -> tuple[str, str]:
@@ -129,7 +195,10 @@ def phase_build() -> None:
   kernel, spills = None, ''
   for line in build.log.splitlines():
     if 'Compiling entry function' in line:
-      kernel = next(k for k in DEVICE_KERNELS if k in line)
+      kernel = next((k for k in DEVICE_KERNELS if k in line), None)
+      template = re.search(r'ILi(\d+)E', line)
+      if kernel and template:
+        kernel += f'<{template.group(1)}>'
       spills = ''
     m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', line)
     if m and kernel:
@@ -139,14 +208,24 @@ def phase_build() -> None:
       print(f'[build] {kernel}: {m.group(1)} registers, static smem '
             f'{m.group(2) or 0} B, {spills}')
       kernel = None
-  for t in (256, 16):
+  for t in (256, 65, 16):
     print(f'[build] capped_attention_kernel at T={t}, H=64: dynamic smem '
           f'{_lib.library().vp_attention_smem_bytes(t, 64)} B')
 
 
+def _library_layer_norm(case):
+  """torch.nn.functional.layer_norm on the K6 case's inputs, its (scale +
+  1) folded into the weight beforehand (not timed)."""
+  x, scale, bias = case.args
+  weight = scale if case.kwargs['direct_scale'] else scale + 1.0
+  return lambda: torch.nn.functional.layer_norm(x, (x.shape[-1],), weight,
+                                                bias, 1e-6)
+
+
 def phase_kernels(device) -> dict[str, dict]:
   record = {k: {'max_abs_err': 0.0} for k in KERNELS}
-  for case in cases_lib.main_path_cases(device, batch=2):
+  for case in (cases_lib.main_path_cases(device, batch=2)
+               + cases_lib.clip_path_cases(device, batch=2)):
     r = cases_lib.run_case(case)
     print(f'[kernels] {r["kernel"]} {r["label"]}: max|kernel-twin| '
           f'{r["max_abs_err"]:.3g}, vs fp32 twin {r["err_vs_fp32"]:.3g} '
@@ -157,31 +236,70 @@ def phase_kernels(device) -> dict[str, dict]:
           f'{cases_lib.FP32_ERR_RATIO})')
     rec = record[r['kernel']]
     rec['max_abs_err'] = max(rec['max_abs_err'], r['max_abs_err'])
-  # Times at the main path's shapes for two clips; the JSON record takes
+  # Times at the paths' shapes for two requests; the JSON record takes
   # each kernel's first shape (K1: the spatial stack's).
   timed = [
       cases_lib.attention_case(32, 256, 768, 12, 64, cap=50.0, padded=False,
                                device=device),
       cases_lib.attention_case(512, 16, 768, 12, 64, cap=50.0, padded=False,
                                device=device),
+      cases_lib.attention_case(2, 65, 768, 12, 64, cap=50.0, padded=True,
+                               causal=True, device=device),
       cases_lib.ffn_case(8192, 768, 3072, activation='gelu', padded=False,
                          device=device),
       *cases_lib.boundary_cases(2, 16, 256, 768, device=device),
+      cases_lib.flash_case(2, 12, 4096, 4096, 64, cap=50.0, mask='none',
+                           device=device),
+      cases_lib.layer_norm_case(8192, 768, direct_scale=False,
+                                device=device),
+      cases_lib.layer_norm_case(130, 768, direct_scale=False, device=device),
   ]
   for case in timed:
     run = lambda impl: case.fn(*case.args, **case.kwargs, impl=impl)
     ms = cuda_ms(lambda: run('kernel'), warmup=3, iters=20)
+    dev_ms = device_ms(lambda: run('kernel'), iters=10)
     plain_ms = cuda_ms(lambda: run('reference'), warmup=2, iters=10)
-    print(f'[kernels] time {case.kernel} {case.label}: kernel {ms:.4f} ms, '
-          f'plain twin {plain_ms:.4f} ms')
-    record[case.kernel].setdefault('ms', ms)
-    record[case.kernel].setdefault('plain_ms', plain_ms)
+    library_ms = None
+    if case.kernel == 'fused_layer_norm_2d':
+      library_ms = cuda_ms(_library_layer_norm(case), warmup=3, iters=20)
+    bound_ms, bound_by = cases_lib.bound(case)
+    print(f'[kernels] time {case.kernel} {case.label}: kernel {ms:.4f} ms '
+          f'(device {dev_ms:.4f} ms), plain twin {plain_ms:.4f} ms, library '
+          f'{"none" if library_ms is None else f"{library_ms:.4f} ms"}, '
+          f'bound {bound_ms:.4f} ms ({bound_by})')
+    rec = record[case.kernel]
+    for key, value in (('ms', ms), ('device_ms', dev_ms),
+                       ('plain_ms', plain_ms),
+                       ('library_ms', library_ms), ('bound_ms', bound_ms),
+                       ('bound_by', bound_by)):
+      rec.setdefault(key, value)
+  # Yardstick only, not the same function: SDPA has no tanh cap, so it is
+  # timed on K5's inputs without one, beside K5 without one.
+  case = next(c for c in timed if c.kernel == 'fused_attention')
+  q, k, v, _ = case.args
+  sdpa_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+      q, k, v), warmup=3, iters=20)
+  nocap_ms = cuda_ms(lambda: case.fn(*case.args, logit_cap=0.0,
+                                     impl='kernel'), warmup=3, iters=20)
+  print(f'[kernels] yardstick {case.label} without a cap: kernel '
+        f'{nocap_ms:.4f} ms, scaled_dot_product_attention {sdpa_ms:.4f} ms')
   return record
 
 
 def _video(b: int, device, seed: int) -> torch.Tensor:
   gen = torch.Generator(device=device).manual_seed(seed)
   return torch.rand((b, FRAMES, SIZE, SIZE, 3), generator=gen, device=device)
+
+
+def _text(b: int, device, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+  """Seeded ids [b, 64] in the vocabulary and paddings with seeded real
+  lengths (1..64, so some tokens are padded)."""
+  gen = torch.Generator(device=device).manual_seed(seed)
+  ids = torch.randint(0, registry.TEXT_VOCAB_SIZE, (b, TEXT_LEN),
+                      generator=gen, device=device)
+  lengths = torch.randint(1, TEXT_LEN + 1, (b, 1), generator=gen,
+                          device=device)
+  return ids, (torch.arange(TEXT_LEN, device=device) >= lengths).float()
 
 
 def phase_model(device):
@@ -198,7 +316,7 @@ def phase_model(device):
     torch.cuda.synchronize()
     check(tuple(out.shape) == (b, 4096, 768), f'output shape {out.shape}')
     check(bool(torch.isfinite(out).all()), f'non-finite output at B={b}')
-    per = {k: _lib.LAUNCHES[k] - before.get(k, 0) for k in PER_FORWARD}
+    per = launches_since(before)
     check(per == PER_FORWARD, f'launches per forward {per} != {PER_FORWARD}')
     outputs[b] = out
     print(f'[model] B={b}: out {tuple(out.shape)} {out.dtype}, finite, '
@@ -242,14 +360,113 @@ def phase_golden(device) -> None:
   check(err <= GOLDEN_ATOL and cos >= MIN_COSINE, 'golden mismatch')
 
 
-def phase_times(device, model, params, smi: str) -> None:
+def phase_clip(device):
+  model = registry.get_model(CLIP_MODEL, fprop_dtype=torch.bfloat16)
+  tree = init_lib.numpy_video_clip(0, model.config, norm_bias_std=0.1)
+  params = prepare_for_kernels(
+      params_from_numpy(tree, device=device, dtype=torch.bfloat16))
+  requests = (('video', 1), ('video+text', 2), ('text', 8))
+  _lib.reset_launches()
+  outputs = {}
+  for kind, b in requests:
+    video = _video(b, device, seed=20 + b) if 'video' in kind else None
+    text = _text(b, device, seed=30 + b) if 'text' in kind else (None, None)
+    before = dict(_lib.LAUNCHES)
+    video_emb, text_emb, _ = model.apply(params, video, *text)
+    torch.cuda.synchronize()
+    per = launches_since(before)
+    for label, emb in (('video', video_emb), ('text', text_emb)):
+      check((emb is not None) == (label in kind),
+            f'{kind} request: {label} embeddings {emb is not None}')
+      if emb is not None:
+        check(tuple(emb.shape) == (b, 768), f'{label} shape {emb.shape}')
+        check(bool(torch.isfinite(emb).all()), f'non-finite {label} at B={b}')
+    check(per == PER_CLIP_REQUEST[kind],
+          f'{kind} launches {per} != {PER_CLIP_REQUEST[kind]}')
+    outputs[kind] = (video_emb, text_emb, video, text)
+    print(f'[clip] {kind} B={b}: embeddings [{b}, 768] bf16, finite, '
+          f'launches {per}')
+  launches = dict(_lib.LAUNCHES)
+
+  got_v, got_t, video, text = outputs['video+text']
+  ref_v, ref_t, _ = model.apply(params, video, *text, impl='reference')
+  model32 = model.replace_config(dtype=torch.float32)
+  params32 = params_from_numpy(tree, device=device)
+  ref32_v, ref32_t, _ = model32.apply(params32, video, *text,
+                                      impl='reference')
+  del params32
+  torch.cuda.empty_cache()
+  for label, want_v, want_t in (('bf16 reference', ref_v, ref_t),
+                                ('fp32 reference', ref32_v, ref32_t)):
+    for tower, got, want in (('video', got_v, want_v),
+                             ('text', got_t, want_t)):
+      cos = cosine_per_token(got, want)
+      err = (got.float() - want.float()).abs().max().item()
+      print(f'[clip] B=2 {tower} kernels vs {label}: min per-embedding '
+            f'cosine {cos:.6f}, max abs err {err:.4g}')
+      check(cos >= MIN_COSINE, f'{tower} cosine {cos} < {MIN_COSINE} vs '
+            f'{label}')
+  return model, params, launches
+
+
+def phase_clip_golden(device) -> None:
+  g = np.load(CLIP_GOLDEN)
+  cfg_dict = json.loads(str(g['config']))
+  cfg = clip_lib.VideoCLIPConfig(
+      **cfg_dict | {'pos_emb_shape': tuple(cfg_dict['pos_emb_shape'])},
+      dtype=torch.bfloat16)
+  params = prepare_for_kernels(init_lib.init_video_clip(
+      int(g['param_seed']), cfg, device=device, dtype=torch.bfloat16,
+      norm_bias_std=float(g['norm_bias_std'])))
+  # The inputs, drawn as scripts/make_torch_clip_golden.py make_inputs does.
+  rng = np.random.default_rng(int(g['input_seed']))
+  video = rng.standard_normal(tuple(g['video_shape'])).astype(np.float32)
+  lengths = np.asarray(g['text_lengths'])
+  ids = rng.integers(0, cfg.vocabulary_size,
+                     size=(len(lengths), lengths.max())).astype(np.int32)
+  pads = (np.arange(lengths.max())[None, :]
+          >= lengths[:, None]).astype(np.float32)
+  _lib.reset_launches()
+  video_emb, text_emb, outs = clip_lib.apply(
+      params, torch.from_numpy(video).to(device),
+      torch.from_numpy(ids).to(device), torch.from_numpy(pads).to(device),
+      cfg, return_intermediate=('frame_embeddings',), impl='kernel')
+  torch.cuda.synchronize()
+  check(_lib.LAUNCHES['fused_attention'] > 0
+        and _lib.LAUNCHES['fused_layer_norm_2d'] > 0,
+        f'the tiny CLIP config did not run K5 and K6: {dict(_lib.LAUNCHES)}')
+  for key, got in (('video_embeddings', video_emb),
+                   ('text_embeddings', text_emb),
+                   ('frame_embeddings', outs['frame_embeddings'])):
+    want = torch.from_numpy(g[key]).to(device)
+    err = (got.float() - want).abs().max().item()
+    cos = cosine_per_token(got, want)
+    print(f'[clip-golden] tiny config {key}, bf16 kernels vs JAX fp32: max '
+          f'abs err {err:.4g} (atol {CLIP_GOLDEN_ATOL}), min cosine '
+          f'{cos:.6f}')
+    check(err <= CLIP_GOLDEN_ATOL and cos >= MIN_COSINE,
+          f'CLIP golden mismatch in {key}')
+
+
+def phase_times(device, model, params, clip_model, clip_params,
+                smi: str) -> None:
   for b in (1, 8):
     video = _video(b, device, seed=10 + b)
     for impl in ('kernel', 'reference'):
       ms = cuda_ms(lambda: model.apply(params, video, impl=impl),
                    warmup=2, iters=10 if impl == 'kernel' else 3)
-      print(f'[times] B={b} {impl}: {ms:.3f} ms/forward, '
+      print(f'[times] encoder B={b} {impl}: {ms:.3f} ms/forward, '
             f'{1000.0 * b / ms:.2f} clips/s ({smi})')
+  for b in (1, 8):
+    video, text = _video(b, device, seed=40 + b), _text(b, device, 50 + b)
+    for impl in ('kernel', 'reference'):
+      ms = cuda_ms(lambda: clip_model.apply(clip_params, video, *text,
+                                            impl=impl),
+                   warmup=2 if impl == 'kernel' else 1,
+                   iters=10 if impl == 'kernel' else 2)
+      print(f'[times] clip video+text B={b} {impl}: {ms:.3f} ms/request, '
+            f'{1000.0 * b / ms:.2f} requests/s ({smi})')
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -257,16 +474,26 @@ def main() -> int:
   device = torch.device('cuda', 0)
   phase_build()
   record = phase_kernels(device)
-  model, params, launches = phase_model(device)
+  model, params, encoder_launches = phase_model(device)
   phase_golden(device)
-  phase_times(device, model, params, smi)
+  clip_model, clip_params, clip_launches = phase_clip(device)
+  phase_clip_golden(device)
+  phase_times(device, model, params, clip_model, clip_params, smi)
   kernels = []
   for k, (source, replaces) in KERNELS.items():
-    check(launches.get(k, 0) > 0, f'{k} never launched on the main path')
+    by_path = {'encoder': encoder_launches.get(k, 0),
+               'clip': clip_launches.get(k, 0)}
+    launches = sum(by_path.values())
+    check(launches > 0, f'{k} never launched on a path')
+    rec = record[k]
     kernels.append(dict(name=k, route='cuda', source=source,
-                        replaces=replaces, launches=launches[k],
-                        max_abs_err=record[k]['max_abs_err'],
-                        ms=record[k]['ms'], plain_ms=record[k]['plain_ms']))
+                        replaces=replaces, launches=launches,
+                        launches_by_path=by_path,
+                        max_abs_err=rec['max_abs_err'], ms=rec['ms'],
+                        device_ms=rec['device_ms'],
+                        plain_ms=rec['plain_ms'], bound_ms=rec['bound_ms'],
+                        bound_by=rec['bound_by'],
+                        library_ms=rec['library_ms']))
   print(smi)
   print(json.dumps({'kernels': kernels}))
   print(json.dumps({'ok': True, 'device': {

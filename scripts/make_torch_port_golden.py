@@ -12,6 +12,7 @@ params and the clip and compares (``chip_smoke.py`` phase 5).
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
@@ -56,8 +57,11 @@ def make_golden() -> dict[str, np.ndarray]:
 
 
 def main() -> None:
-  np.savez_compressed(OUT, **make_golden())
-  print(f'wrote {OUT} ({os.path.getsize(OUT)} bytes)')
+  parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+  parser.add_argument('--out', default=OUT, help='npz path to write')
+  args = parser.parse_args()
+  np.savez_compressed(args.out, **make_golden())
+  print(f'wrote {args.out} ({os.path.getsize(args.out)} bytes)')
 
 
 if __name__ == '__main__':

@@ -1,12 +1,15 @@
 """Where the time of one forward of the PyTorch port goes, on a CUDA card.
 
-Builds ``videoprism_public_v1_base`` in bf16 with seeded random weights,
-warms up, then traces forwards with ``torch.profiler`` and prints the
-device time per kernel name, the share of each, and the device's idle
-share (wall time of the traced forwards minus the device time of their
-kernels, over the wall time).
+Builds ``videoprism_public_v1_base`` (or, with ``--model``, the CLIP model
+``videoprism_lvt_public_v1_base``, answering video + text requests of 64
+token ids) in bf16 with seeded random weights, warms up, then traces
+forwards with ``torch.profiler`` and prints the device time per kernel
+name, the share of each, and the device's idle share (wall time of the
+traced forwards minus the device time of their kernels, over the wall
+time).
 
-    python scripts/profile_torch_forward.py --batch 8 [--impl reference]
+    python scripts/profile_torch_forward.py --batch 8 [--impl reference] \
+        [--model videoprism_lvt_public_v1_base]
 """
 
 from __future__ import annotations
@@ -28,6 +31,9 @@ from videoprism_tpu_torch.models import registry  # noqa: E402
 
 def main() -> None:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+  parser.add_argument('--model', default='videoprism_public_v1_base',
+                      choices=('videoprism_public_v1_base',
+                               'videoprism_lvt_public_v1_base'))
   parser.add_argument('--batch', type=int, default=8)
   parser.add_argument('--impl', default='kernel',
                       choices=('kernel', 'reference'))
@@ -38,14 +44,20 @@ def main() -> None:
     sys.exit('profile_torch_forward: needs a CUDA device')
 
   device = torch.device('cuda', 0)
-  model = registry.get_model('videoprism_public_v1_base',
-                             fprop_dtype=torch.bfloat16)
+  model = registry.get_model(args.model, fprop_dtype=torch.bfloat16)
   params = prepare_for_kernels(
       model.init(0, device=device, norm_bias_std=0.1)['params'])
   gen = torch.Generator(device=device).manual_seed(0)
   video = torch.rand((args.batch, 16, 288, 288, 3), generator=gen,
                      device=device)
-  forward = lambda: model.apply(params, video, impl=args.impl)
+  text = ()
+  if model.is_clip:
+    ids = torch.randint(0, model.config.vocabulary_size, (args.batch, 64),
+                        generator=gen, device=device)
+    lengths = torch.randint(1, 65, (args.batch, 1), generator=gen,
+                            device=device)
+    text = (ids, (torch.arange(64, device=device) >= lengths).float())
+  forward = lambda: model.apply(params, video, *text, impl=args.impl)
   for _ in range(2):
     forward()
   torch.cuda.synchronize()
@@ -68,8 +80,9 @@ def main() -> None:
   smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                         '--format=csv,noheader'], capture_output=True,
                        text=True, check=False).stdout.strip()
-  print(f'{smi}; B={args.batch} impl={args.impl}: wall {wall_ms:.3f} '
-        f'ms/forward (host clock, profiler on), device {device_ms:.3f} ms, '
+  print(f'{smi}; {args.model} B={args.batch} impl={args.impl}: wall '
+        f'{wall_ms:.3f} ms/forward (host clock, profiler on), device '
+        f'{device_ms:.3f} ms, '
         f'idle share {max(0.0, 1.0 - device_ms / wall_ms):.3f}')
   ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])
   for name, (calls, ms) in ranked[:args.top]:

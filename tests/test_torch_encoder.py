@@ -82,9 +82,10 @@ def _both(tree, video, jcfg, tcfg, frame_paddings=None, **kwargs):
       frame_paddings=(None if frame_paddings is None
                       else jnp.asarray(frame_paddings)), **kwargs)
   got, gouts = tfe.apply(
-      prepare_for_kernels(params_from_numpy(tree)), torch.from_numpy(video),
-      tcfg, frame_paddings=(None if frame_paddings is None
-                            else torch.from_numpy(frame_paddings)), **kwargs)
+      prepare_for_kernels(params_from_numpy(tree, device='cpu')),
+      torch.from_numpy(video), tcfg,
+      frame_paddings=(None if frame_paddings is None
+                      else torch.from_numpy(frame_paddings)), **kwargs)
   return got, gouts, want, wouts
 
 
@@ -129,7 +130,7 @@ def test_encode_spatial_then_temporal(tree):
   jcfg, tcfg = _configs()
   video, pads = _video(4), _frame_paddings()
   jp = jax.tree.map(jnp.asarray, tree)
-  tp = params_from_numpy(tree)
+  tp = params_from_numpy(tree, device='cpu')
   want_s = jfe.encode_spatial(jp, jnp.asarray(video), jcfg,
                               frame_paddings=jnp.asarray(pads))
   got_s = tfe.encode_spatial(tp, torch.from_numpy(video), tcfg,
@@ -151,7 +152,7 @@ def test_encode_with_patches(tree):
   want, _ = jfe.encode_with_patches(jax.tree.map(jnp.asarray, tree),
                                     jnp.asarray(patches), (FRAMES, 24, 24),
                                     jcfg)
-  got, _ = tfe.encode_with_patches(params_from_numpy(tree),
+  got, _ = tfe.encode_with_patches(params_from_numpy(tree, device='cpu'),
                                    torch.from_numpy(patches),
                                    (FRAMES, 24, 24), tcfg)
   np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
@@ -171,9 +172,10 @@ def test_bf16_twin_stays_near_fp32(tree):
   """The served dtype on the CPU twins: per-token cosine to fp32 >= 0.999."""
   _, tcfg = _configs()
   video = torch.from_numpy(_video(7))
-  want, _ = tfe.apply(params_from_numpy(tree), video, tcfg)
-  got, _ = tfe.apply(params_from_numpy(tree, dtype=torch.bfloat16), video,
-                     dataclasses.replace(tcfg, dtype=torch.bfloat16))
+  want, _ = tfe.apply(params_from_numpy(tree, device='cpu'), video, tcfg)
+  got, _ = tfe.apply(
+      params_from_numpy(tree, device='cpu', dtype=torch.bfloat16), video,
+      dataclasses.replace(tcfg, dtype=torch.bfloat16))
   assert got.dtype == torch.bfloat16
   cos = torch.nn.functional.cosine_similarity(got.float(), want, dim=-1)
   assert cos.min().item() >= 0.999

@@ -12,6 +12,7 @@ Tolerances are those of ``videoprism_tpu_torch.ops.kernels.cases``.
 import pytest
 import torch
 
+from videoprism_tpu_torch.models import clip as clip_lib
 from videoprism_tpu_torch.models import factorized_encoder as fe
 from videoprism_tpu_torch.models import init as init_lib
 from videoprism_tpu_torch.io.checkpoints import prepare_for_kernels
@@ -73,6 +74,38 @@ def test_boundaries_main_path_shapes(device, which):
   _check(cases_lib.boundary_cases(2, 16, 256, 768, device=device)[which])
 
 
+@pytest.mark.parametrize('cap', [50.0, 0.0])
+@pytest.mark.parametrize('padded', [False, True])
+def test_attention_block_causal_text_shapes(device, cap, padded):
+  """The text tower: T = 65 unpadded, causal + padding [B, T, T] mask."""
+  _check(cases_lib.attention_case(2, 65, 768, 12, 64, cap=cap, padded=padded,
+                                  causal=True, device=device))
+
+
+@pytest.mark.parametrize('cap', [50.0, 0.0])
+@pytest.mark.parametrize('mask', ['none', 'keys', 'rows'])
+def test_flash_attention_aux_shapes(device, cap, mask):
+  """K5 at the auxiliary encoder's [2, 12, 4096, 64]."""
+  _check(cases_lib.flash_case(2, 12, 4096, 4096, 64, cap=cap, mask=mask,
+                              device=device))
+
+
+@pytest.mark.parametrize('t,s,h', [(1, 1, 64), (100, 200, 32), (130, 70, 128),
+                                   (256, 128, 16)])
+@pytest.mark.parametrize('mask', ['keys', 'rows'])
+def test_flash_attention_ragged_shapes(device, t, s, h, mask):
+  """Query and key counts off the tile sizes, and other head widths."""
+  _check(cases_lib.flash_case(3, 2, t, s, h, cap=50.0, mask=mask,
+                              device=device))
+
+
+@pytest.mark.parametrize('rows', [8192, 130, 1])
+@pytest.mark.parametrize('direct_scale', [False, True])
+def test_layer_norm_rows(device, rows, direct_scale):
+  _check(cases_lib.layer_norm_case(rows, 768, direct_scale=direct_scale,
+                                   device=device))
+
+
 def test_dispatch_counts_and_refusals(device):
   case = cases_lib.attention_case(2, 16, 128, 2, 64, cap=50.0, padded=False,
                                   device=device)
@@ -87,6 +120,20 @@ def test_dispatch_counts_and_refusals(device):
     case.fn(case.args[0].transpose(0, 1), *case.args[1:], **case.kwargs)
   with pytest.raises(ValueError, match='dim_per_head'):
     case.fn(*case.args, **dict(case.kwargs, num_heads=32, dim_per_head=4))
+  flash = cases_lib.flash_case(1, 2, 128, 128, 64, cap=50.0, mask='none',
+                               device=device)
+  ln = cases_lib.layer_norm_case(16, 768, direct_scale=False, device=device)
+  _lib.reset_launches()
+  flash.fn(*flash.args, **flash.kwargs)
+  ln.fn(*ln.args, **ln.kwargs)
+  torch.cuda.synchronize()
+  assert dict(_lib.LAUNCHES) == {'fused_attention': 1,
+                                 'fused_layer_norm_2d': 1}
+  with pytest.raises(ValueError, match='head dim'):
+    q = flash.args[0][..., :8].contiguous()
+    flash.fn(q, q, q, flash.args[3], **flash.kwargs)
+  with pytest.raises(ValueError, match='bfloat16'):
+    ln.fn(ln.args[0].float(), *ln.args[1:], **ln.kwargs)
 
 
 def test_tiny_encoder_kernel_path_matches_reference(device):
@@ -111,3 +158,32 @@ def test_tiny_encoder_kernel_path_matches_reference(device):
   assert got.shape == (2, 64, 128) and bool(torch.isfinite(got).all())
   cos = torch.nn.functional.cosine_similarity(got.float(), want.float(), -1)
   assert cos.min().item() >= 0.999, cos.min().item()
+
+
+def test_tiny_clip_kernel_path_matches_reference(device):
+  """A tiny CLIP config whose auxiliary encoder sees 1152 tokens, so K5
+  and K6 run beside K1-K4, against the plain path on the same card."""
+  cfg = clip_lib.VideoCLIPConfig(
+      patch_size=6, pos_emb_shape=(8, 12, 12), num_spatial_layers=1,
+      num_temporal_layers=1, mlp_dim=128, num_auxiliary_layers=2,
+      vocabulary_size=128, num_unimodal_layers=2, model_dim=64, num_heads=2,
+      atten_logit_cap=50.0, dtype=torch.bfloat16)
+  params = prepare_for_kernels(init_lib.init_video_clip(
+      0, cfg, device=device, dtype=torch.bfloat16, norm_bias_std=0.1))
+  gen = torch.Generator(device=device).manual_seed(0)
+  video = torch.randn((2, 8, 72, 72, 3), generator=gen, device=device)
+  ids = torch.randint(0, 128, (2, 16), generator=gen, device=device)
+  pads = (torch.arange(16, device=device)
+          >= torch.tensor([[16], [5]], device=device)).float()
+  _lib.reset_launches()
+  got = clip_lib.apply(params, video, ids, pads, cfg)
+  torch.cuda.synchronize()
+  assert dict(_lib.LAUNCHES) == {
+      'fused_attention_block': 4, 'fused_ffn_block': 6,
+      'spatial_to_temporal': 1, 'temporal_to_output': 1,
+      'fused_attention': 2, 'fused_layer_norm_2d': 4}
+  want = clip_lib.apply(params, video, ids, pads, cfg, impl='reference')
+  for g, w in zip(got[:2], want[:2]):
+    assert g.shape == (2, 64) and bool(torch.isfinite(g).all())
+    cos = torch.nn.functional.cosine_similarity(g.float(), w.float(), -1)
+    assert cos.min().item() >= 0.999, cos.min().item()

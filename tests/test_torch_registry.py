@@ -78,7 +78,7 @@ def test_bridge_round_trips():
   cfg = TINY
   tree = tinit.numpy_factorized_encoder(0, cfg, norm_bias_std=0.1)
   tree['step'] = np.array(7, np.int32)
-  params = tckpt.params_from_numpy(tree)
+  params = tckpt.params_from_numpy(tree, device='cpu')
   back = {k: v.numpy() for k, v in
           jckpt.tree_flatten_with_names(jax.tree.map(lambda t: t, params))}
   for k, v in jckpt.tree_flatten_with_names(tree):
@@ -86,7 +86,7 @@ def test_bridge_round_trips():
   assert params['step'].dtype == torch.int32
   # bf16 numpy leaves (as JAX hands them out) go through float32.
   bf = tckpt.params_from_numpy({'w': np.ones(3, ml_dtypes.bfloat16)},
-                               dtype=torch.bfloat16)
+                               device='cpu', dtype=torch.bfloat16)
   assert bf['w'].dtype == torch.bfloat16 and bf['w'].sum().item() == 3.0
 
 
@@ -99,7 +99,7 @@ def test_load_checkpoint_npz_and_pretrained(tmp_path):
   assert jckpt.tree_flatten_with_names(loaded)[0][0] == \
       jckpt.tree_flatten_with_names(tree)[0][0]
   params = treg.load_pretrained_weights('videoprism_public_v1_base',
-                                        checkpoint_path=path)
+                                        checkpoint_path=path, device='cpu')
   np.testing.assert_array_equal(
       params['spatial_encoder']['transformers_stack']['x_layers'][
           'self_attention']['query']['w'].numpy(),
@@ -111,7 +111,8 @@ def test_load_checkpoint_npz_and_pretrained(tmp_path):
 
 def test_prepare_for_kernels_fuses_projections():
   cfg = TINY
-  params = tinit.init_factorized_encoder(0, cfg, dtype=torch.bfloat16)
+  params = tinit.init_factorized_encoder(0, cfg, device='cpu',
+                                         dtype=torch.bfloat16)
   prepared = tckpt.prepare_for_kernels(params)
   attn = prepared['temporal_encoder']['transformers_stack']['x_layers'][
       'self_attention']
@@ -128,20 +129,53 @@ def test_prepare_for_kernels_fuses_projections():
 def test_registry_surface():
   assert vpt.has_model('videoprism_public_v1_base')
   assert vpt.has_model('google/videoprism-large-f8r288')
-  assert not vpt.has_model('videoprism_lvt_public_v1_base')
   model = vpt.get_model('google/videoprism-base-f16r288',
                         fprop_dtype=torch.bfloat16)
-  assert model.config.dtype == torch.bfloat16
+  assert model.config.dtype == torch.bfloat16 and not model.is_clip
   assert model.config.model_dim == 768 and model.config.atten_logit_cap == 50.0
+  for name, hf_id, width in (
+      ('videoprism_lvt_public_v1_base', 'google/videoprism-lvt-base-f16r288',
+       768),
+      ('videoprism_lvt_public_v1_large',
+       'google/videoprism-lvt-large-f8r288', 1024)):
+    assert vpt.has_model(name) and vpt.has_model(hf_id)
+    for key in (name, hf_id):
+      clip = vpt.get_model(key, fprop_dtype=torch.bfloat16)
+      assert clip.is_clip and clip.config.dtype == torch.bfloat16
+      assert clip.config.model_dim == width
+      assert clip.config.vocabulary_size == 32_000
+      assert clip.config.num_auxiliary_layers == 2
+  assert not vpt.has_model('videoprism_vc_v1_base')
   with pytest.raises(NotImplementedError, match='ROADMAP'):
-    vpt.get_model('videoprism_lvt_public_v1_base')
+    vpt.get_model('videoprism_vc_v1_base')
   with pytest.raises(ValueError, match='not found'):
     vpt.get_model('videoprism_public_v9')
 
 
+def test_entry_points_default_to_the_card(tmp_path):
+  """Params land on the card unless the caller asks for the CPU; with no
+  card the default raises instead of running on the CPU."""
+  tree = tinit.numpy_factorized_encoder(0, TINY)
+  path = str(tmp_path / 'ckpt.npz')
+  jckpt.save_checkpoint(path, tree)
+  calls = (
+      lambda: tckpt.params_from_numpy(tree),
+      lambda: tinit.init_factorized_encoder(0, TINY),
+      lambda: treg.Model(TINY).init(0),
+      lambda: treg.load_pretrained_weights(None, checkpoint_path=path),
+  )
+  for call in calls:
+    if torch.cuda.is_available():
+      leaf = jckpt.tree_flatten_with_names(call())[0][1]
+      assert leaf.is_cuda
+    else:
+      with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+
+
 def test_model_apply_takes_params_wrapper():
   model = treg.Model(TINY)
-  variables = model.init(0, norm_bias_std=0.1)
+  variables = model.init(0, device='cpu', norm_bias_std=0.1)
   video = torch.from_numpy(np.random.default_rng(0).standard_normal(
       (1, 4, 24, 24, 3)).astype(np.float32))
   a, _ = model.apply(variables, video)
@@ -166,7 +200,7 @@ def test_golden_fixture_regenerates_and_port_matches():
                              rtol=0)
   cfg = TINY
   params = tinit.init_factorized_encoder(
-      int(stored['param_seed']), cfg,
+      int(stored['param_seed']), cfg, device='cpu',
       norm_bias_std=float(stored['norm_bias_std']))
   video = np.random.default_rng(int(stored['video_seed'])).standard_normal(
       tuple(stored['video_shape'])).astype(np.float32)

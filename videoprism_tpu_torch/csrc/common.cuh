@@ -65,13 +65,14 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
 
 // ---- host launchers (each returns cudaGetLastError() after its launch) ----
 
-// Row LayerNorm with fp32 statistics and the (scale + 1) convention, rows
-// read in [B, X, Y] order and written in [B, Y, X] order, plus pos[x] in
-// fp32 before the single cast when `pos` is not null.  X = Y = 1 is a plain
-// row LN.
+// Row LayerNorm with fp32 statistics, (x - mean) * rsqrt(var + eps) *
+// (scale + scale_offset) + bias (offset 1 is the (scale + 1) convention, 0
+// is direct_scale), rows read in [B, X, Y] order and written in [B, Y, X]
+// order, plus pos[x] in fp32 before the single cast when `pos` is not null.
+// X = Y = 1 is a plain row LN.
 cudaError_t launch_ln_rows(const bf16* x, const bf16* scale, const bf16* bias, const bf16* pos,
-                           bf16* out, int batch, int X, int Y, int d, float eps,
-                           cudaStream_t stream);
+                           bf16* out, int batch, int X, int Y, int d, float scale_offset,
+                           float eps, cudaStream_t stream);
 
 enum Epilogue : int {
   kEpiQkv = 0,       // + bias, x col_scale on the first scaled_cols columns

@@ -4,6 +4,9 @@
 //   * the fp32 LN at the head of the TPU block kernels (_ln_f32 in
 //     videoprism_tpu/ops/pallas/transformer_block.py), which the K1/K2 entry
 //     points in transformer_block.cu run through launch_ln_rows;
+//   * K6 videoprism_tpu/ops/pallas/layer_norm.py fused_layer_norm_2d
+//     (_ln_kernel): a plain row LN, (scale + 1) or the scale itself with
+//     direct_scale, every LN outside the fused blocks;
 //   * K3 videoprism_tpu/ops/pallas/boundary.py spatial_to_temporal
 //     (_st_kernel): spatial_ln + temporal pos-emb + regroup
 //     (b t) n d -> (b n) t d;
@@ -25,7 +28,8 @@ namespace vp {
 
 __global__ void ln_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ scale,
                                const bf16* __restrict__ bias, const bf16* __restrict__ pos,
-                               bf16* __restrict__ out, int rows, int X, int Y, int d, float eps) {
+                               bf16* __restrict__ out, int rows, int X, int Y, int d,
+                               float scale_offset, float eps) {
   const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
@@ -58,8 +62,8 @@ __global__ void ln_rows_kernel(const bf16* __restrict__ x, const bf16* __restric
     float2 v = __bfloat1622float2(xr[i]);
     float2 g = __bfloat1622float2(sc[i]);
     float2 h = __bfloat1622float2(bi[i]);
-    float r0 = (v.x - mean) * inv * (g.x + 1.f) + h.x;
-    float r1 = (v.y - mean) * inv * (g.y + 1.f) + h.y;
+    float r0 = (v.x - mean) * inv * (g.x + scale_offset) + h.x;
+    float r1 = (v.y - mean) * inv * (g.y + scale_offset) + h.y;
     if (pr) {
       float2 p = __bfloat1622float2(pr[i]);
       r0 += p.x;
@@ -70,12 +74,13 @@ __global__ void ln_rows_kernel(const bf16* __restrict__ x, const bf16* __restric
 }
 
 cudaError_t launch_ln_rows(const bf16* x, const bf16* scale, const bf16* bias, const bf16* pos,
-                           bf16* out, int batch, int X, int Y, int d, float eps,
-                           cudaStream_t stream) {
+                           bf16* out, int batch, int X, int Y, int d, float scale_offset,
+                           float eps, cudaStream_t stream) {
   const int rows = batch * X * Y;
   constexpr int kWarps = 8;
   const int blocks = (rows + kWarps - 1) / kWarps;
-  ln_rows_kernel<<<blocks, kWarps * 32, 0, stream>>>(x, scale, bias, pos, out, rows, X, Y, d, eps);
+  ln_rows_kernel<<<blocks, kWarps * 32, 0, stream>>>(x, scale, bias, pos, out, rows, X, Y, d,
+                                                      scale_offset, eps);
   return cudaGetLastError();
 }
 
@@ -89,7 +94,7 @@ int vp_spatial_to_temporal(const void* x, const void* scale, const void* bias, c
   using vp::bf16;
   return vp::launch_ln_rows(static_cast<const bf16*>(x), static_cast<const bf16*>(scale),
                             static_cast<const bf16*>(bias), static_cast<const bf16*>(pos),
-                            static_cast<bf16*>(out), b, t, n, d, eps,
+                            static_cast<bf16*>(out), b, t, n, d, 1.f, eps,
                             static_cast<cudaStream_t>(stream));
 }
 
@@ -99,7 +104,18 @@ int vp_temporal_to_output(const void* x, const void* scale, const void* bias, vo
   using vp::bf16;
   return vp::launch_ln_rows(static_cast<const bf16*>(x), static_cast<const bf16*>(scale),
                             static_cast<const bf16*>(bias), nullptr, static_cast<bf16*>(out), b,
-                            n, t, d, eps, static_cast<cudaStream_t>(stream));
+                            n, t, d, 1.f, eps, static_cast<cudaStream_t>(stream));
+}
+
+// K6: x [rows, d] -> LN(x) [rows, d]; (scale + 1), or scale with
+// direct_scale.
+int vp_layer_norm(const void* x, const void* scale, const void* bias, void* out, int rows, int d,
+                  int direct_scale, float eps, void* stream) {
+  using vp::bf16;
+  return vp::launch_ln_rows(static_cast<const bf16*>(x), static_cast<const bf16*>(scale),
+                            static_cast<const bf16*>(bias), nullptr, static_cast<bf16*>(out), rows,
+                            1, 1, d, direct_scale ? 0.f : 1.f, eps,
+                            static_cast<cudaStream_t>(stream));
 }
 
 const char* vp_error_string(int code) {

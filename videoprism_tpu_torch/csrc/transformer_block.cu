@@ -32,7 +32,7 @@ int vp_attention_block(const void* x, const void* mask, const void* ln_scale,
   cudaError_t err = vp::launch_ln_rows(static_cast<const bf16*>(x),
                                        static_cast<const bf16*>(ln_scale),
                                        static_cast<const bf16*>(ln_bias), nullptr,
-                                       static_cast<bf16*>(h), rows, 1, 1, d, epsilon, s);
+                                       static_cast<bf16*>(h), rows, 1, 1, d, 1.f, epsilon, s);
   if (err != cudaSuccess) return err;
   err = vp::launch_gemm_bf16(static_cast<const bf16*>(h), static_cast<const bf16*>(wqkv),
                              static_cast<const bf16*>(bqkv), nullptr, nullptr,
@@ -59,7 +59,7 @@ int vp_ffn_block(const void* x, const void* pads, const void* ln_scale, const vo
   cudaError_t err = vp::launch_ln_rows(static_cast<const bf16*>(x),
                                        static_cast<const bf16*>(ln_scale),
                                        static_cast<const bf16*>(ln_bias), nullptr,
-                                       static_cast<bf16*>(h), rows, 1, 1, d, epsilon, s);
+                                       static_cast<bf16*>(h), rows, 1, 1, d, 1.f, epsilon, s);
   if (err != cudaSuccess) return err;
   err = vp::launch_gemm_bf16(static_cast<const bf16*>(h), static_cast<const bf16*>(w1),
                              static_cast<const bf16*>(b1), p, nullptr, static_cast<bf16*>(a),

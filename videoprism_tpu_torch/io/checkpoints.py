@@ -52,13 +52,19 @@ def _tree_map(fn, tree):
   return fn(tree)
 
 
-def params_from_numpy(tree, *, device: torch.device | str = 'cpu',
+def params_from_numpy(tree, *, device: torch.device | str = 'cuda',
                       dtype: torch.dtype = torch.float32) -> dict:
   """Nested tree of numpy arrays -> the same tree of tensors on ``device``.
 
   Floating leaves become ``dtype``; others keep their type.  bfloat16
-  arrays (``ml_dtypes``, as JAX hands them out) go through float32.
+  arrays (``ml_dtypes``, as JAX hands them out) go through float32.  The
+  default device is the card; without one it raises (pass
+  ``device='cpu'`` to run on the CPU).
   """
+  device = torch.device(device)
+  if device.type == 'cuda' and not torch.cuda.is_available():
+    raise RuntimeError(
+        "no CUDA device is available; pass device='cpu' to load on the CPU")
 
   def convert(leaf):
     arr = np.asarray(leaf)
@@ -75,16 +81,18 @@ def prepare_for_kernels(params: dict[str, Any]) -> dict[str, Any]:
   """Adds ``fused`` = {wqkv [.., D, 3NH], bqkv [.., 3NH], wo [.., NH, D]}
   beside every ``self_attention`` tree's (D, N, H) weights, in their dtype.
 
-  Done once at load time, so the attention block does not concatenate and
-  transpose its projection weights on every forward.  Returns a new tree;
-  the other leaves are shared.
+  Done once at load time, so the attention block (K1) does not concatenate
+  and transpose its projection weights on every forward.  The CLIP
+  model's ``auxiliary_encoder`` is left as it is: its 4096-token attention
+  runs the composed path (K5), which takes the (D, N, H) weights.  Returns
+  a new tree; the other leaves are shared.
   """
   out = {}
   for key, value in params.items():
     if key == 'self_attention' and 'query' in value:
       value = dict(value, fused=fused_attention_weights(
           value, value['query']['w'].dtype))
-    elif isinstance(value, Mapping):
+    elif isinstance(value, Mapping) and key != 'auxiliary_encoder':
       value = prepare_for_kernels(value)
     out[key] = value
   return out

@@ -180,7 +180,8 @@ def _encode_projected(params, patches, image_shape, cfg, *,
   if contains(return_intermediate, 'spatial_features'):
     # The composed boundary, as in the JAX package when the spatial
     # features are asked for: LN (in dtype), regroup, + pos-emb.
-    features = basic.layer_norm(params['spatial_ln'], features, dtype=dtype)
+    features = basic.layer_norm(params['spatial_ln'], features, dtype=dtype,
+                                impl=impl)
     outputs['spatial_features'] = features.reshape(b, t * n, d)
     features = features.reshape(b, t, n, d).transpose(1, 2).reshape(
         b * n, t, d) + temporal_pos_emb
@@ -217,7 +218,8 @@ def encode_spatial(params: Params, inputs: torch.Tensor,
       cfg.vit_layer_config(cfg.num_spatial_layers),
       paddings=None if paddings is None else paddings.to(cfg.dtype),
       impl=impl)
-  features = basic.layer_norm(params['spatial_ln'], features, dtype=cfg.dtype)
+  features = basic.layer_norm(params['spatial_ln'], features, dtype=cfg.dtype,
+                              impl=impl)
   return features.reshape(b, t, features.shape[1], features.shape[2])
 
 
@@ -242,5 +244,6 @@ def encode_temporal(params: Params, spatial_features: torch.Tensor,
       params['temporal_encoder'], features,
       cfg.vit_layer_config(cfg.num_temporal_layers),
       paddings=paddings, impl=impl)
-  features = basic.layer_norm(params['temporal_ln'], features, dtype=dtype)
+  features = basic.layer_norm(params['temporal_ln'], features, dtype=dtype,
+                              impl=impl)
   return features.reshape(b, n, t, d).transpose(1, 2).reshape(b, t * n, d)

@@ -1,12 +1,13 @@
-"""Random parameter trees for the factorized encoder (port of
-``videoprism_tpu.models.init``).
+"""Random parameter trees for the factorized encoder and the video-text
+CLIP model (port of ``videoprism_tpu.models.init``).
 
-The tree has the nesting, leaf names and shapes of the JAX package's
-``init_factorized_encoder`` (and so of the public "repeated" checkpoints),
-including the stacked leading layer axis.  Values come from
-``numpy.random.default_rng(seed)``: truncated-normal LeCun kernels as in
-flax, zero biases and LN parameters unless ``norm_bias_std`` asks for
-non-zero ones (tests use that so a dropped bias or LN term shows).
+Each tree has the nesting, leaf names and shapes of the JAX package's
+``init_factorized_encoder`` / ``init_video_clip`` (and so of the public
+"repeated" checkpoints), including the stacked leading layer axis.  Values
+come from ``numpy.random.default_rng(seed)``: truncated-normal LeCun
+kernels as in flax, normal(1/sqrt(D)) token and class embeddings, zero
+biases and LN parameters unless ``norm_bias_std`` asks for non-zero ones
+(tests use that so a dropped bias or LN term shows).
 """
 
 from __future__ import annotations
@@ -17,7 +18,9 @@ import numpy as np
 import torch
 
 from videoprism_tpu_torch.io.checkpoints import params_from_numpy
+from videoprism_tpu_torch.models import clip as clip_lib
 from videoprism_tpu_torch.models import factorized_encoder as fe
+from videoprism_tpu_torch.models import text_encoder as te
 from videoprism_tpu_torch.ops.transformer import TransformerLayerConfig
 
 Params = dict[str, Any]
@@ -46,6 +49,11 @@ class _Init:
       return (self.std * self.rng.standard_normal(shape)).astype(np.float32)
     return np.zeros(shape, np.float32)
 
+  def embedding(self, shape: tuple[int, ...]) -> np.ndarray:
+    """normal(0, 1/sqrt(D)), the token and class embeddings' init."""
+    return (self.rng.standard_normal(shape, dtype=np.float32)
+            * np.float32(shape[-1] ** -0.5))
+
   def dense(self, d_in: int, d_out: int) -> Params:
     return {'linear': {'kernel': self.lecun((d_in, d_out)),
                        'bias': self.small((d_out,))}}
@@ -53,17 +61,20 @@ class _Init:
   def layer_norm(self, d: int) -> Params:
     return {'scale': self.small((d,)), 'bias': self.small((d,))}
 
+  def attention(self, d: int, n: int, h: int, per_dim_scale: bool) -> Params:
+    proj = lambda: {'w': self.lecun((d, n, h)), 'b': self.small((n, h))}
+    attn = {'query': proj(), 'key': proj(), 'value': proj(),
+            'post': {'w': self.lecun((d, n, h)), 'b': self.small((d,))}}
+    if per_dim_scale:
+      attn['per_dim_scale'] = {'per_dim_scale': self.small((h,))}
+    return attn
+
   def layer(self, d: int, cfg: TransformerLayerConfig) -> Params:
     if cfg.norm_policy != 'pre':
       raise NotImplementedError(
           f'norm_policy={cfg.norm_policy!r} is not ported yet; see ROADMAP.md')
     n = cfg.num_heads
-    h = d // n
-    proj = lambda: {'w': self.lecun((d, n, h)), 'b': self.small((n, h))}
-    attn = {'query': proj(), 'key': proj(), 'value': proj(),
-            'post': {'w': self.lecun((d, n, h)), 'b': self.small((d,))}}
-    if cfg.enable_per_dim_scale:
-      attn['per_dim_scale'] = {'per_dim_scale': self.small((h,))}
+    attn = self.attention(d, n, d // n, cfg.enable_per_dim_scale)
     return {
         'layer_norm': self.layer_norm(d),
         'self_attention': attn,
@@ -72,13 +83,51 @@ class _Init:
                      'ffn_layer2': self.dense(cfg.hidden_dim, d)},
     }
 
-  def vision_transformer(self, d: int, cfg: TransformerLayerConfig) -> Params:
+  def stacked_transformer(self, d: int,
+                          cfg: TransformerLayerConfig) -> Params:
     layers = [self.layer(d, cfg) for _ in range(cfg.num_layers)]
     if cfg.scan:
-      stack = {'x_layers': _stack(layers)}
-    else:
-      stack = {f'x_layers_{i}': layer for i, layer in enumerate(layers)}
-    return {'transformers_stack': stack}
+      return {'x_layers': _stack(layers)}
+    return {f'x_layers_{i}': layer for i, layer in enumerate(layers)}
+
+  def vision_transformer(self, d: int, cfg: TransformerLayerConfig) -> Params:
+    return {'transformers_stack': self.stacked_transformer(d, cfg)}
+
+  def atten_pooling(self, d: int, hidden_dim: int, num_heads: int) -> Params:
+    """One learned query, per-dim scale, output LN."""
+    return {
+        'pooling_attention_query': self.lecun((1, d)),
+        'pooling_attention': self.attention(d, num_heads,
+                                            hidden_dim // num_heads, True),
+        'pooling_attention_layer_norm': self.layer_norm(d),
+    }
+
+  def factorized_encoder(self, cfg: fe.FactorizedEncoderConfig) -> Params:
+    d = cfg.model_dim
+    t, gh, gw = cfg.pos_emb_shape
+    return {
+        'patch_projection': self.dense(cfg.patch_size ** 2 * 3, d),
+        'spatial_pos_emb': {'emb_var': self.lecun((gh * gw, d))},
+        'spatial_encoder': self.vision_transformer(
+            d, cfg.vit_layer_config(cfg.num_spatial_layers)),
+        'spatial_ln': self.layer_norm(d),
+        'temporal_pos_emb': {'emb_var': self.lecun((t, d))},
+        'temporal_encoder': self.vision_transformer(
+            d, cfg.vit_layer_config(cfg.num_temporal_layers)),
+        'temporal_ln': self.layer_norm(d),
+    }
+
+  def text_encoder(self, cfg: te.TextEncoderConfig) -> Params:
+    d = cfg.model_dim
+    params = {
+        'token_emb': {'emb_var': self.embedding((cfg.vocabulary_size, d))},
+        'unimodal_transformer': self.stacked_transformer(
+            d, cfg.layer_config()),
+        'unimodal_ln': self.layer_norm(d),
+    }
+    if cfg.num_class_tokens > 0:
+      params['cls_emb'] = self.embedding((1, cfg.num_class_tokens, d))
+    return params
 
 
 def _stack(trees: list[Params]) -> Params:
@@ -90,27 +139,42 @@ def _stack(trees: list[Params]) -> Params:
 def numpy_factorized_encoder(seed: int, cfg: fe.FactorizedEncoderConfig, *,
                              norm_bias_std: float = 0.0) -> Params:
   """The encoder's param tree as float32 numpy arrays."""
+  return _Init(seed, norm_bias_std).factorized_encoder(cfg)
+
+
+def numpy_video_clip(seed: int, cfg: clip_lib.VideoCLIPConfig, *,
+                     norm_bias_std: float = 0.0) -> Params:
+  """The CLIP model's param tree as float32 numpy arrays: the keys and
+  shapes of the JAX package's ``init_video_clip``."""
   init = _Init(seed, norm_bias_std)
   d = cfg.model_dim
-  t, gh, gw = cfg.pos_emb_shape
-  return {
-      'patch_projection': init.dense(cfg.patch_size ** 2 * 3, d),
-      'spatial_pos_emb': {'emb_var': init.lecun((gh * gw, d))},
-      'spatial_encoder': init.vision_transformer(
-          d, cfg.vit_layer_config(cfg.num_spatial_layers)),
-      'spatial_ln': init.layer_norm(d),
-      'temporal_pos_emb': {'emb_var': init.lecun((t, d))},
-      'temporal_encoder': init.vision_transformer(
-          d, cfg.vit_layer_config(cfg.num_temporal_layers)),
-      'temporal_ln': init.layer_norm(d),
+  params = {
+      'vision_encoder': init.factorized_encoder(cfg.vision_config()),
+      'contrastive_vision_pooler': init.atten_pooling(d, 4 * d,
+                                                      cfg.num_heads),
+      'text_encoder': init.text_encoder(cfg.text_config()),
   }
+  if cfg.num_auxiliary_layers > 0:
+    params['auxiliary_encoder'] = init.vision_transformer(
+        d, cfg.vision_config().vit_layer_config(cfg.num_auxiliary_layers))
+  return params
 
 
 def init_factorized_encoder(seed: int, cfg: fe.FactorizedEncoderConfig, *,
-                            device: torch.device | str = 'cpu',
+                            device: torch.device | str = 'cuda',
                             dtype: torch.dtype = torch.float32,
                             norm_bias_std: float = 0.0) -> Params:
   """Param tree for ``factorized_encoder.apply``, as tensors on ``device``."""
   return params_from_numpy(
       numpy_factorized_encoder(seed, cfg, norm_bias_std=norm_bias_std),
+      device=device, dtype=dtype)
+
+
+def init_video_clip(seed: int, cfg: clip_lib.VideoCLIPConfig, *,
+                    device: torch.device | str = 'cuda',
+                    dtype: torch.dtype = torch.float32,
+                    norm_bias_std: float = 0.0) -> Params:
+  """Param tree for ``clip.apply``, as tensors on ``device``."""
+  return params_from_numpy(
+      numpy_video_clip(seed, cfg, norm_bias_std=norm_bias_std),
       device=device, dtype=dtype)

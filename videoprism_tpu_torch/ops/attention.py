@@ -2,9 +2,12 @@
 path of ``videoprism_tpu.ops.attention``).
 
 Projection weights keep the checkpoint layout (D, N, H) for q/k/v and post.
-This is plain PyTorch: the 'pre'-policy transformer layer runs the fused
-attention block (``ops/kernels/transformer_block.py``) instead, and this
-module is its composed reference.  Inference only: no dropout.
+The projections are plain PyTorch products (XLA's in the JAX package).  The
+attention core is plain PyTorch with ``impl='xla'``; ``impl='flash'`` runs
+K5 (``ops/kernels/flash_attention.py``) where the JAX package's gate takes
+its Pallas kernel and the composed core elsewhere.  Short 'pre'-policy
+self-attention runs the fused attention block
+(``ops/kernels/transformer_block.py``) instead.  Inference only: no dropout.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch
 
 from videoprism_tpu_torch.ops import basic
 from videoprism_tpu_torch.ops import masks as mask_lib
+from videoprism_tpu_torch.ops.kernels import flash_attention as flash
 
 Params = dict[str, Any]
 
@@ -76,12 +80,20 @@ def multi_head_attention(
     logit_cap: float = 0.0,
     enable_per_dim_scale: bool = True,
     dtype: torch.dtype = torch.float32,
+    impl: str = 'xla',
+    kernel_impl: str = 'auto',
 ) -> torch.Tensor:
   """q/k/v projections, capped attention, post projection -> [B, T, Dq].
 
   Params: ``{'query'|'key'|'value': {'w': [D, N, H], 'b': [N, H]},
   'post': {'w': [Dq, N, H], 'b': [Dq]}, 'per_dim_scale': {...}}``.
+
+  ``impl='flash'`` runs K5 for the shapes its JAX gate takes
+  (``flash_attention.supports``), dispatched by ``kernel_impl`` ('auto' |
+  'kernel' | 'reference'); ``'xla'`` and other shapes run the composed core.
   """
+  if impl not in ('xla', 'flash'):
+    raise ValueError(f"impl must be 'xla' or 'flash', got {impl!r}")
   dim_per_head = hidden_dim // num_heads
   if dim_per_head * num_heads != hidden_dim:
     raise ValueError(f'{hidden_dim=} is not divisible by {num_heads=}')
@@ -99,8 +111,14 @@ def multi_head_attention(
   else:
     query = query * dim_per_head ** -0.5
 
-  encoded = _dot_atten_head_major(query, key, value, atten_mask,
-                                  logit_cap=logit_cap, dtype=dtype)
+  if impl == 'flash' and flash.supports(query.shape[2], key.shape[2]):
+    encoded = flash.fused_attention(
+        query.contiguous(), key.contiguous(), value.contiguous(),
+        atten_mask.squeeze(1).float().contiguous(), logit_cap=logit_cap,
+        impl=kernel_impl).to(dtype)
+  else:
+    encoded = _dot_atten_head_major(query, key, value, atten_mask,
+                                    logit_cap=logit_cap, dtype=dtype)
   out = torch.einsum('bnth,dnh->btd', encoded,
                      basic.cast_floating(params['post']['w'], dtype))
   return out + basic.cast_floating(params['post']['b'], dtype)

@@ -5,8 +5,9 @@ checkpoint schema (a dense layer is ``{'linear': {'kernel': [in, out],
 'bias': [out]}}``).  Conventions kept from the reference: exact (erf) GELU,
 LayerNorm with ``scale + 1``, and the softplus per-dim query scale.
 
-Only the plain LayerNorm is here; the standalone LN kernel of the JAX
-package (``ops/pallas/layer_norm.py``) is still to be ported.
+:func:`layer_norm` routes a CUDA tensor through K6, the standalone LN
+kernel (``ops/kernels/layer_norm.py``), as the JAX package routes it
+through its Pallas LN on the TPU.
 """
 
 from __future__ import annotations
@@ -16,6 +17,9 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from videoprism_tpu_torch.ops.kernels import _lib
+from videoprism_tpu_torch.ops.kernels import layer_norm as ln_kernel
 
 Params = dict[str, Any]
 
@@ -50,18 +54,30 @@ def layer_norm(
     epsilon: float = 1e-6,
     direct_scale: bool = False,
     dtype: torch.dtype = torch.float32,
+    impl: str = 'auto',
 ) -> torch.Tensor:
   """LayerNorm over the last axis with the reference's ``scale + 1``.
 
-  Statistics are taken in the input dtype.
+  ``impl`` follows the kernel wrappers' rule (``ops/kernels/_lib.py``): a
+  CUDA tensor runs K6 ``fused_layer_norm_2d`` over the flattened rows (fp32
+  statistics, one cast), at any row count and any even D: the JAX
+  package's ``rows % 8 == 0 and D % 128 == 0`` gate is TPU tiling and is
+  not ported.  A CPU tensor, or ``impl='reference'``, takes the plain path
+  of the JAX package, with statistics in the input dtype.
   """
+  scale = cast_floating(params['scale'], dtype)
+  bias = cast_floating(params['bias'], dtype)
+  if _lib.use_kernel(impl, inputs):
+    d = inputs.shape[-1]
+    return ln_kernel.fused_layer_norm_2d(
+        inputs.reshape(-1, d).contiguous(), scale, bias, epsilon=epsilon,
+        direct_scale=direct_scale, impl=impl).reshape(inputs.shape)
   mean = inputs.mean(-1, keepdim=True)
   var = (inputs - mean).square().mean(-1, keepdim=True)
   normed = (inputs - mean) * torch.rsqrt(var + epsilon)
-  scale = cast_floating(params['scale'], dtype)
   if not direct_scale:
     scale = scale + 1.0
-  return normed * scale + cast_floating(params['bias'], dtype)
+  return normed * scale + bias
 
 
 def dense(params: Params, inputs: torch.Tensor, *,

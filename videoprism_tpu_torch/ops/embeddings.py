@@ -1,4 +1,4 @@
-"""Positional embeddings and their resize (port of
+"""Token and positional embeddings and the pos-emb resize (port of
 ``videoprism_tpu.ops.embeddings``).
 
 The JAX package resizes pos-emb tables with
@@ -12,6 +12,7 @@ zeroed) and applies it per axis.
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import numpy as np
@@ -20,6 +21,40 @@ import torch
 from videoprism_tpu_torch.ops import basic
 
 Params = dict[str, Any]
+
+
+def token_embedding(params: Params, ids: torch.Tensor, *,
+                    scale_sqrt_depth: bool = False,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+  """Rows ``ids`` of ``{'emb_var': [V, D]}`` (the JAX package's 'index'
+  lookup), times ``sqrt(D)`` with ``scale_sqrt_depth`` (the text tower's
+  convention) -> [..., D]."""
+  emb_var = basic.cast_floating(params['emb_var'], dtype)
+  embs = emb_var[ids]
+  return embs * emb_var.shape[-1] ** 0.5 if scale_sqrt_depth else embs
+
+
+def sinusoidal_positional_embedding(seq_length: int, embedding_dim: int, *,
+                                    dtype: torch.dtype = torch.float32,
+                                    device=None) -> torch.Tensor:
+  """[1, L, D] table ``concat([sin, cos])`` over geometric timescales from
+  1 to 10^4.
+
+  Computed in fp32 and cast once, as the JAX package does (its fp32 trig is
+  load-bearing for parity).
+  """
+  f32 = torch.float32
+  position = torch.arange(seq_length, dtype=f32, device=device)[None, :]
+  num_timescales = embedding_dim // 2
+  increment = np.float32(math.log(10_000.0)) / np.float32(
+      max(num_timescales - 1, 1))
+  inv_timescales = torch.exp(
+      torch.arange(num_timescales, dtype=f32, device=device)
+      * -float(increment))
+  scaled_time = position[:, :, None] * inv_timescales[None, None, :]
+  embs = torch.cat([torch.sin(scaled_time), torch.cos(scaled_time)],
+                   dim=-1).to(dtype)
+  return torch.nn.functional.pad(embs, (0, embedding_dim % 2))
 
 
 def trainable_positional_embedding(params: Params, seq_length: int, *,

@@ -1,7 +1,8 @@
 """Build, load and launch the hand-written Hopper kernels of ``csrc/``.
 
-The CUDA sources are compiled at first use with ``nvcc`` for ``sm_90a``
-into one shared library with a plain C interface, cached under
+The CUDA sources are compiled at first use with ``nvcc`` for ``sm_90a``,
+one ``nvcc`` per source, all started together, and linked into one shared
+library with a plain C interface, cached under
 ``build/videoprism_tpu_torch/`` by a hash of the sources and flags, and
 loaded with ``ctypes``.  Each C entry point launches on the stream it is
 given and returns ``cudaGetLastError()``; :func:`launch` raises when that is
@@ -33,7 +34,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[3] / 'build' / 'videoprism_tpu_torch'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+              '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 IMPLS = ('auto', 'kernel', 'reference')
 
 # Launches per kernel wrapper: each wrapper adds one where it launches its
@@ -47,6 +48,8 @@ _SIGNATURES = {
     'vp_ffn_block': 'ppppppppppp' 'iiii' 'f' 'p',
     'vp_spatial_to_temporal': 'ppppp' 'iiii' 'f' 'p',
     'vp_temporal_to_output': 'pppp' 'iiii' 'f' 'p',
+    'vp_layer_norm': 'pppp' 'iii' 'f' 'p',
+    'vp_flash_attention': 'ppppp' 'iiiiiii' 'f' 'p',
 }
 _CTYPES = {'p': ctypes.c_void_p, 'i': ctypes.c_int, 'f': ctypes.c_float}
 
@@ -115,14 +118,33 @@ def build() -> Build:
   if path.exists() and log_path.exists():
     return Build(path, 0.0, log_path.read_text())
   BUILD_DIR.mkdir(parents=True, exist_ok=True)
-  tmp = path.with_name(f'{path.stem}.{os.getpid()}.tmp.so')
-  cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), *map(str, sources)]
+  stem = f'{path.stem}.{os.getpid()}'
   start = time.perf_counter()
+  jobs = []
+  for src in sources:
+    obj = BUILD_DIR / f'{stem}.{src.stem}.o'
+    cmd = [_nvcc(), *NVCC_FLAGS, '-c', '-o', str(obj), str(src)]
+    jobs.append((cmd, obj, subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+  logs = []
+  for cmd, _, proc in jobs:
+    logs.append(proc.communicate()[0])
+    if proc.returncode != 0:
+      for _, _, other in jobs:
+        other.kill()
+        other.wait()
+      raise RuntimeError(
+          f'nvcc failed ({proc.returncode}):\n{" ".join(cmd)}\n{logs[-1]}')
+  tmp = BUILD_DIR / f'{stem}.tmp.so'
+  cmd = [_nvcc(), '-shared', '-o', str(tmp), *(str(obj) for _, obj, _ in jobs)]
   proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-  seconds = time.perf_counter() - start
-  log = proc.stdout + proc.stderr
+  for _, obj, _ in jobs:
+    obj.unlink()
   if proc.returncode != 0:
-    raise RuntimeError(f'nvcc failed ({proc.returncode}):\n{" ".join(cmd)}\n{log}')
+    raise RuntimeError(f'nvcc link failed ({proc.returncode}):\n'
+                       f'{" ".join(cmd)}\n{proc.stdout}{proc.stderr}')
+  seconds = time.perf_counter() - start
+  log = ''.join(logs) + proc.stdout + proc.stderr
   log_path.write_text(log)
   os.replace(tmp, path)
   return Build(path, seconds, log)

@@ -3,7 +3,8 @@ of a kernel against its plain twin on the card.
 
 Used by ``chip_smoke.py`` and ``tests/test_torch_gpu.py``.  Every input is
 drawn with ``numpy.random.default_rng(seed)``; LN scales and biases are
-non-zero so that a dropped term shows.
+non-zero so that a dropped term shows.  :func:`bound` gives the least time
+the card could take for a case's work (H100 SXM peaks).
 
 Tolerance: the kernel and the bf16 twin round to bf16 at the same points
 and differ only in summation order, so they are compared in fp32 with
@@ -21,10 +22,20 @@ import numpy as np
 import torch
 
 from videoprism_tpu_torch.ops.kernels import boundary
+from videoprism_tpu_torch.ops.kernels import flash_attention as flash
+from videoprism_tpu_torch.ops.kernels import layer_norm as ln_kernel
 from videoprism_tpu_torch.ops.kernels import transformer_block as tb
 
 ATOL = RTOL = 2e-2
 FP32_ERR_RATIO = 2.0
+# One H100 SXM at 700 W (NVIDIA's data sheet, dense): bf16 tensor cores,
+# fp32 outside them, and HBM3.
+PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# fp32 operations per element of a row LayerNorm (sum, centre, square,
+# sum, scale, shift), counted against the fp32 peak.
+LN_OPS_PER_ELEMENT = 8
 
 
 @dataclasses.dataclass
@@ -51,23 +62,74 @@ def _paddings(rng, b: int, t: int, padded: bool) -> np.ndarray:
   return pads
 
 
+def _self_mask(pads: np.ndarray, causal: bool) -> np.ndarray:
+  """[b, 1, t] key mask, or with ``causal`` the [b, t, t] mask of the text
+  tower: a padded query or key, or a key after the query, is masked (a
+  padded query's row is fully masked)."""
+  if not causal:
+    return pads[:, None, :] * np.float32(tb.NEG_INF)
+  t = pads.shape[1]
+  masked = ((pads[:, :, None] + pads[:, None, :]) > 0) | (
+      np.arange(t)[None, None, :] > np.arange(t)[None, :, None])
+  return masked.astype(np.float32) * np.float32(tb.NEG_INF)
+
+
 def attention_case(b: int, t: int, d: int, heads: int, head_dim: int, *,
-                   cap: float, padded: bool, device, seed: int = 0) -> Case:
+                   cap: float, padded: bool, device, causal: bool = False,
+                   seed: int = 0) -> Case:
   rng = np.random.default_rng(seed)
   nh = heads * head_dim
   w = lambda *s: rng.standard_normal(s) / np.sqrt(s[0])
   small = lambda *s: 0.1 * rng.standard_normal(s)
-  mask = _paddings(rng, b, t, padded)[:, None, :] * np.float32(tb.NEG_INF)
+  mask = _self_mask(_paddings(rng, b, t, padded), causal)
   args = (_tensor(rng.standard_normal((b, t, d)), device),
           _tensor(mask, device, torch.float32),
           _tensor(small(d), device), _tensor(small(d), device),
           _tensor(w(d, 3 * nh), device), _tensor(small(3 * nh), device),
           _tensor(w(nh, d), device), _tensor(small(d), device))
   return Case('fused_attention_block',
-              f'[{b},{t},{d}] cap={cap:g} padded={padded}',
+              f'[{b},{t},{d}] cap={cap:g} padded={padded}'
+              + (' causal' if causal else ''),
               tb.fused_attention_block, args,
               dict(num_heads=heads, dim_per_head=head_dim, logit_cap=cap,
                    query_scale=head_dim ** -0.5))
+
+
+def flash_case(b: int, heads: int, t: int, s: int, head_dim: int, *,
+               cap: float, mask: str, device, seed: int = 0) -> Case:
+  """K5 on q [b, heads, t, head_dim] against s keys.  ``mask``: 'none'
+  (zeros [b, 1, s], the auxiliary encoder's), 'keys' (ragged key padding
+  [b, 1, s] and one fully padded sequence, whose rows are all masked) or
+  'rows' ([b, t, s]: causal where t = s, plus fully masked rows)."""
+  rng = np.random.default_rng(seed)
+  qkv = [rng.standard_normal((b, heads, n, head_dim)) for n in (t, s, s)]
+  qkv[0] = qkv[0] * (3.0 / np.sqrt(head_dim))   # logits of std ~3
+  if mask == 'none':
+    m = np.zeros((b, 1, s), np.float32)
+  elif mask == 'keys':
+    m = _paddings(rng, b, s, True)[:, None, :] * np.float32(tb.NEG_INF)
+  else:
+    masked = np.arange(s)[None, None, :] > np.arange(t)[None, :, None]
+    masked = np.broadcast_to(masked, (b, t, s)).copy()
+    masked[-1, : t // 3] = True
+    m = masked.astype(np.float32) * np.float32(tb.NEG_INF)
+  args = (*(_tensor(a, device) for a in qkv), _tensor(m, device, torch.float32))
+  return Case('fused_attention',
+              f'[{b},{heads},{t},{head_dim}] S={s} cap={cap:g} mask={mask}',
+              flash.fused_attention, args, dict(logit_cap=cap))
+
+
+def layer_norm_case(rows: int, d: int, *, direct_scale: bool, device,
+                    seed: int = 0) -> Case:
+  rng = np.random.default_rng(seed)
+  scale = (1.0 + 0.1 * rng.standard_normal(d) if direct_scale
+           else 0.1 * rng.standard_normal(d))
+  args = (_tensor(2.0 * rng.standard_normal((rows, d)) + 0.5, device),
+          _tensor(scale, device), _tensor(0.1 * rng.standard_normal(d), device))
+  return Case('fused_layer_norm_2d',
+              f'rows={rows} D={d} direct_scale={direct_scale}',
+              ln_kernel.fused_layer_norm_2d, args,
+              dict(direct_scale=direct_scale))
 
 
 def ffn_case(rows: int, d: int, f: int, *, activation: str, padded: bool,
@@ -122,6 +184,63 @@ def main_path_cases(device, *, batch: int = 2, d: int = 768,
                             activation=activation, padded=padded,
                             device=device))
   return cases + boundary_cases(batch, frames, tokens, d, device=device)
+
+
+def clip_path_cases(device, *, batch: int = 2, d: int = 768,
+                    heads: int = 12, tokens: int = 4096,
+                    text_len: int = 65) -> list[Case]:
+  """The kernels the CLIP model adds, at lvt base's shapes for ``batch``
+  requests: K5 over the auxiliary encoder's tokens (cap 50 and 0, with
+  fully masked rows), K6 at the aux pre-LN's rows and at an odd row count
+  (both scale conventions), K1 with the text tower's causal + padding mask
+  at its unpadded length."""
+  hd = d // heads
+  cases = []
+  for cap in (50.0, 0.0):
+    for mask in ('keys', 'rows'):
+      cases.append(flash_case(batch, heads, tokens, tokens, hd, cap=cap,
+                              mask=mask, device=device))
+    cases.append(attention_case(batch, text_len, d, heads, hd, cap=cap,
+                                padded=True, causal=True, device=device))
+  for rows in (batch * tokens, 130):
+    for direct_scale in (False, True):
+      cases.append(layer_norm_case(rows, d, direct_scale=direct_scale,
+                                   device=device))
+  return cases
+
+
+def bound(case: Case) -> tuple[float, str]:
+  """(ms, 'bytes' | 'operations'): the least time the card could take for
+  the case's work, the larger of its bytes (each input read once, each
+  output written once) over HBM's rate and its operations over the peak
+  for their type (matrix products at the bf16 tensor-core peak, LayerNorm
+  arithmetic at the fp32 peak)."""
+  args, kw = case.args, case.kwargs
+  nbytes = sum(a.numel() * a.element_size() for a in args)
+  if case.kernel == 'fused_attention_block':
+    x = args[0]
+    b, t, d = x.shape
+    nh = kw['num_heads'] * kw['dim_per_head']
+    out_bytes = x.numel() * x.element_size()
+    flops = (2 * b * t * d * 4 * nh
+             + 4 * b * kw['num_heads'] * t * t * kw['dim_per_head'])
+    ops_s = flops / PEAK_BF16_FLOPS
+  elif case.kernel == 'fused_ffn_block':
+    x, w1 = args[0], args[4]
+    out_bytes = x.numel() * x.element_size()
+    ops_s = 4 * x.shape[0] * w1.shape[0] * w1.shape[1] / PEAK_BF16_FLOPS
+  elif case.kernel == 'fused_attention':
+    q, k = args[0], args[1]
+    b, n, t, h = q.shape
+    out_bytes = q.numel() * q.element_size()
+    ops_s = 4 * b * n * t * k.shape[2] * h / PEAK_BF16_FLOPS
+  else:   # row LayerNorms: K3, K4, K6
+    x = args[0]
+    out_bytes = x.numel() * x.element_size()
+    ops_s = LN_OPS_PER_ELEMENT * x.numel() / PEAK_FP32_FLOPS
+  bytes_s = (nbytes + out_bytes) / PEAK_BYTES
+  return 1e3 * max(bytes_s, ops_s), ('bytes' if bytes_s >= ops_s
+                                     else 'operations')
 
 
 def run_case(case: Case) -> dict:

@@ -35,13 +35,43 @@ _ACTIVATIONS = {'gelu': 1, 'relu': 2}
 
 
 def ln_f32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-           epsilon: float) -> torch.Tensor:
-  """(scale + 1) LayerNorm over the last axis in fp32; returns fp32."""
+           epsilon: float, direct_scale: bool = False) -> torch.Tensor:
+  """LayerNorm over the last axis in fp32 with the (scale + 1) convention
+  (the scale itself with ``direct_scale``); returns fp32."""
   xf = x.float()
   mean = xf.mean(-1, keepdim=True)
   var = (xf - mean).square().mean(-1, keepdim=True)
   normed = (xf - mean) * torch.rsqrt(var + epsilon)
-  return normed * (scale.float() + 1.0) + bias.float()
+  scale = scale.float() if direct_scale else scale.float() + 1.0
+  return normed * scale + bias.float()
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   mask: torch.Tensor, *, logit_cap: float,
+                   dtype: torch.dtype) -> torch.Tensor:
+  """Head-major capped softmax attention, as the TPU kernels round it.
+
+  q [B, N, T, H], k and v [B, N, S, H] (any float dtype), mask
+  [B|1, T|1, S] additive; returns [B, N, T, H] in ``dtype``.  fp32 logits,
+  ``cap * tanh(l / cap)`` before the select-mask, exp with masked entries
+  zeroed and fully masked rows uniform 1/S (the row max only when cap = 0),
+  fp32 normalisation, probs cast to ``dtype``, probs @ v in fp32.
+  """
+  s = k.shape[2]
+  logits = q.float() @ k.float().transpose(-1, -2)        # [B, N, T, S]
+  ok = (mask >= MASK_THRESHOLD)[:, None]                  # [B|1, 1, T|1, S]
+  if logit_cap > 0.0:
+    logits = logit_cap * torch.tanh(logits * (1.0 / logit_cap))
+    unnorm = torch.where(ok, torch.exp(logits), 0.0)
+    denom = unnorm.sum(-1, keepdim=True)
+    unnorm = torch.where(denom == 0.0, 1.0, unnorm)
+    denom = torch.where(denom == 0.0, float(s), denom)
+  else:
+    logits = torch.where(ok, logits, NEG_INF)
+    unnorm = torch.exp(logits - logits.amax(-1, keepdim=True))
+    denom = unnorm.sum(-1, keepdim=True)
+  probs = (unnorm / denom).to(dtype)
+  return (probs.float() @ v.float()).to(dtype)
 
 
 def _reference_attention_block(x, mask, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
@@ -55,21 +85,9 @@ def _reference_attention_block(x, mask, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
   qkv = h.float() @ wqkv.float() + bqkv.float()
   q, k, v = qkv.split(nh, dim=-1)
   q, k, v = (q * query_scale).to(x.dtype), k.to(x.dtype), v.to(x.dtype)
-  heads = lambda a: a.reshape(b, t, n, hd).transpose(1, 2).float()
-  logits = heads(q) @ heads(k).transpose(-1, -2)          # [B, N, T, S]
-  ok = (mask >= MASK_THRESHOLD)[:, None]                  # [B|1, 1, T|1, S]
-  if logit_cap > 0.0:
-    logits = logit_cap * torch.tanh(logits * (1.0 / logit_cap))
-    unnorm = torch.where(ok, torch.exp(logits), 0.0)
-    denom = unnorm.sum(-1, keepdim=True)
-    unnorm = torch.where(denom == 0.0, 1.0, unnorm)
-    denom = torch.where(denom == 0.0, float(t), denom)
-  else:
-    logits = torch.where(ok, logits, NEG_INF)
-    unnorm = torch.exp(logits - logits.amax(-1, keepdim=True))
-    denom = unnorm.sum(-1, keepdim=True)
-  probs = (unnorm / denom).to(x.dtype)
-  ctx = (probs.float() @ heads(v)).to(x.dtype)            # [B, N, T, H]
+  heads = lambda a: a.reshape(b, t, n, hd).transpose(1, 2)
+  ctx = attention_core(heads(q), heads(k), heads(v), mask,
+                       logit_cap=logit_cap, dtype=x.dtype)  # [B, N, T, H]
   ctx = ctx.transpose(1, 2).reshape(b, t, nh)
   out = ctx.float() @ wo.float() + bo.float() + x.float()
   return out.to(x.dtype)

@@ -2,14 +2,17 @@
 ``videoprism_tpu.ops.transformer``).
 
 A 'pre'-policy layer with bias, gelu/relu and no per-dim scale (every layer
-of the video encoder) runs as two fused half-layers, K1
-``fused_attention_block`` and K2 ``fused_ffn_block``
-(``ops/kernels/transformer_block.py``), mirroring the JAX package's gate in
-``_try_fused_layer``.  Other 'pre' layers run the composed path
+of the video and text towers) runs as two fused half-layers, mirroring the
+JAX package's choice in ``_try_fused_layer``: K1 ``fused_attention_block``
+when T <= 1024 and the mask covers T, else the composed attention half (K6
+LayerNorm, ``multi_head_attention(impl='flash')`` with K5, residual: the
+4096-token auxiliary encoder); then K2 ``fused_ffn_block``
+(``ops/kernels/``).  Other 'pre' layers run the composed path
 (``multi_head_attention`` + :func:`transformer_ffn`).  The stack is a Python
 loop over the leading layer axis of ``x_layers`` (or over ``x_layers_{i}``
-when ``scan=False``); the JAX package's ``lax.scan``, remat and 128-row
-small-sequence packing have no counterpart here.
+when ``scan=False``); the JAX package's ``lax.scan``, remat, 128-row
+small-sequence packing and pad to a multiple of 8 tokens have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -25,6 +28,10 @@ from videoprism_tpu_torch.ops import masks as mask_lib
 from videoprism_tpu_torch.ops.kernels import transformer_block as tb
 
 Params = dict[str, Any]
+
+# Longest sequence K1 takes, as in the JAX package's attention_block_supported;
+# longer sequences run the composed attention half with K5.
+MAX_FUSED_ATTENTION_T = 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,13 +59,14 @@ def _check_policy(cfg: TransformerLayerConfig) -> None:
 
 def transformer_ffn(params: Params, inputs: torch.Tensor,
                     paddings: torch.Tensor | None,
-                    cfg: TransformerLayerConfig) -> torch.Tensor:
+                    cfg: TransformerLayerConfig, *,
+                    impl: str = 'auto') -> torch.Tensor:
   """Composed pre-norm FFN with residual and padding zeroing."""
   _check_policy(cfg)
   dtype = cfg.dtype
   if paddings is not None:
     paddings = paddings[..., None].to(inputs.dtype)
-  x = basic.layer_norm(params['layer_norm'], inputs, dtype=dtype)
+  x = basic.layer_norm(params['layer_norm'], inputs, dtype=dtype, impl=impl)
   x = basic.feed_forward(params['ffn_layer1'], x, activation=cfg.activation,
                          dtype=dtype)
   if paddings is not None:
@@ -74,6 +82,12 @@ def fused_layer_supported(cfg: TransformerLayerConfig) -> bool:
   """Whether a layer runs as K1 + K2 (the JAX gate of _try_fused_layer)."""
   return (cfg.norm_policy == 'pre' and not cfg.enable_per_dim_scale
           and cfg.activation in ('gelu', 'relu'))
+
+
+def fused_attention_supported(t: int, atten_mask: torch.Tensor) -> bool:
+  """Whether K1 takes a T-token sequence under ``atten_mask`` (the JAX
+  gate without its TPU tiling terms: T <= 1024, the mask covers T)."""
+  return t <= MAX_FUSED_ATTENTION_T and atten_mask.shape[-1] == t
 
 
 def fused_attention_weights(attn: Params, dtype: torch.dtype
@@ -105,26 +119,37 @@ def transformer_layer(params: Params, inputs: torch.Tensor,
   _check_policy(cfg)
   dtype = cfg.dtype
   if not fused_layer_supported(cfg):
-    normed = basic.layer_norm(params['layer_norm'], inputs, dtype=dtype)
+    normed = basic.layer_norm(params['layer_norm'], inputs, dtype=dtype,
+                              impl=impl)
     x = inputs + attention_lib.multi_head_attention(
         params['self_attention'], normed, normed, normed, atten_mask,
         hidden_dim=inputs.shape[-1], num_heads=cfg.num_heads,
         logit_cap=cfg.logit_cap,
         enable_per_dim_scale=cfg.enable_per_dim_scale, dtype=dtype)
-    return transformer_ffn(params['ff_layer'], x, paddings, cfg)
+    return transformer_ffn(params['ff_layer'], x, paddings, cfg, impl=impl)
 
   b, t, d = inputs.shape
   attn = params['self_attention']
-  _, n, h = attn['query']['w'].shape
-  fused = attn.get('fused') or fused_attention_weights(attn, dtype)
   cast = lambda a: basic.cast_floating(a, dtype)
-  x = tb.fused_attention_block(
-      inputs, atten_mask.squeeze(1).float(),
-      cast(params['layer_norm']['scale']), cast(params['layer_norm']['bias']),
-      cast(fused['wqkv']), cast(fused['bqkv']), cast(fused['wo']),
-      cast(attn['post']['b']),
-      num_heads=n, dim_per_head=h, logit_cap=cfg.logit_cap, epsilon=1e-6,
-      query_scale=h ** -0.5, impl=impl)
+  if fused_attention_supported(t, atten_mask):
+    _, n, h = attn['query']['w'].shape
+    fused = attn.get('fused') or fused_attention_weights(attn, dtype)
+    x = tb.fused_attention_block(
+        inputs, atten_mask.squeeze(1).float(),
+        cast(params['layer_norm']['scale']),
+        cast(params['layer_norm']['bias']),
+        cast(fused['wqkv']), cast(fused['bqkv']), cast(fused['wo']),
+        cast(attn['post']['b']),
+        num_heads=n, dim_per_head=h, logit_cap=cfg.logit_cap, epsilon=1e-6,
+        query_scale=h ** -0.5, impl=impl)
+  else:   # the composed attention half: K6 LN, K5 attention, residual
+    normed = basic.layer_norm(params['layer_norm'], inputs, dtype=dtype,
+                              impl=impl)
+    x = inputs + attention_lib.multi_head_attention(
+        attn, normed, normed, normed, atten_mask, hidden_dim=d,
+        num_heads=cfg.num_heads, logit_cap=cfg.logit_cap,
+        enable_per_dim_scale=False, dtype=dtype, impl='flash',
+        kernel_impl=impl)
 
   ff = params['ff_layer']
   pad_rows = (paddings.reshape(b * t, 1).to(dtype) if paddings is not None
@@ -162,3 +187,30 @@ def stacked_transformer(params: Params, inputs: torch.Tensor,
              else params[f'x_layers_{i}'])
     out = transformer_layer(layer, out, paddings, atten_mask, cfg, impl=impl)
   return out
+
+
+def atten_token_pooling(params: Params, tokens: torch.Tensor,
+                        paddings: torch.Tensor | None, *, num_heads: int,
+                        hidden_dim: int, dtype: torch.dtype = torch.float32,
+                        impl: str = 'auto') -> torch.Tensor:
+  """Attention pooling of [B, S, D] tokens with learned queries ->
+  [B, Q, D].
+
+  Params: ``{'pooling_attention_query': [Q, D], 'pooling_attention':
+  {...MHA with per-dim scale}, 'pooling_attention_layer_norm': {...}}``.
+  The attention is plain PyTorch (``impl='xla'`` in the JAX package too);
+  the output LayerNorm is K6 on the card.
+  """
+  batch_size, seq_length = tokens.shape[0], tokens.shape[-2]
+  query = basic.cast_floating(params['pooling_attention_query'], dtype)
+  query = query[None].expand(batch_size, -1, -1)
+  if paddings is None:
+    paddings = torch.zeros((batch_size, seq_length), dtype=tokens.dtype,
+                           device=tokens.device)
+  atten_mask = mask_lib.paddings_to_mask(paddings, paddings.dtype)
+  outputs = attention_lib.multi_head_attention(
+      params['pooling_attention'], query, tokens, tokens, atten_mask,
+      hidden_dim=hidden_dim, num_heads=num_heads, enable_per_dim_scale=True,
+      dtype=dtype)
+  return basic.layer_norm(params['pooling_attention_layer_norm'], outputs,
+                          dtype=dtype, impl=impl)
