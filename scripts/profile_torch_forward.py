@@ -2,14 +2,16 @@
 
 Builds ``videoprism_public_v1_base`` (or, with ``--model``, the CLIP model
 ``videoprism_lvt_public_v1_base``, answering video + text requests of 64
-token ids) in bf16 with seeded random weights, warms up, then traces
+token ids, or the 400-way classifier ``videoprism_vc_v1_large`` /
+``videoprism_vc_v1_giant`` on 8-frame clips) in bf16 with seeded random
+weights, warms up, then traces
 forwards with ``torch.profiler`` and prints the device time per kernel
 name, the share of each, and the device's idle share (wall time of the
 traced forwards minus the device time of their kernels, over the wall
 time).
 
     python scripts/profile_torch_forward.py --batch 8 [--impl reference] \
-        [--model videoprism_lvt_public_v1_base]
+        [--model videoprism_lvt_public_v1_base | videoprism_vc_v1_large]
 """
 
 from __future__ import annotations
@@ -33,7 +35,9 @@ def main() -> None:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument('--model', default='videoprism_public_v1_base',
                       choices=('videoprism_public_v1_base',
-                               'videoprism_lvt_public_v1_base'))
+                               'videoprism_lvt_public_v1_base',
+                               'videoprism_vc_v1_large',
+                               'videoprism_vc_v1_giant'))
   parser.add_argument('--batch', type=int, default=8)
   parser.add_argument('--impl', default='kernel',
                       choices=('kernel', 'reference'))
@@ -44,11 +48,17 @@ def main() -> None:
     sys.exit('profile_torch_forward: needs a CUDA device')
 
   device = torch.device('cuda', 0)
-  model = registry.get_model(args.model, fprop_dtype=torch.bfloat16)
+  if args.model.startswith('videoprism_vc'):
+    model = getattr(registry, args.model)(registry.K400_NUM_CLASSES,
+                                          dtype=torch.bfloat16)
+    frames = model.config.encoder.pos_emb_shape[0]
+  else:
+    model = registry.get_model(args.model, fprop_dtype=torch.bfloat16)
+    frames = 16
   params = prepare_for_kernels(
       model.init(0, device=device, norm_bias_std=0.1)['params'])
   gen = torch.Generator(device=device).manual_seed(0)
-  video = torch.rand((args.batch, 16, 288, 288, 3), generator=gen,
+  video = torch.rand((args.batch, frames, 288, 288, 3), generator=gen,
                      device=device)
   text = ()
   if model.is_clip:

@@ -6,16 +6,27 @@ conftest (which imports JAX) cannot:
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q --noconftest
 
-Tolerances are those of ``videoprism_tpu_torch.ops.kernels.cases``.
+Tolerances are those of ``videoprism_tpu_torch.ops.kernels.cases``.  The
+kernel cases are grouped, a few tests to a family of shapes, each running
+every case and reporting every one that disagrees: the suite's item count
+is kept low on purpose (ROADMAP.md, "the item-count trap").
 """
 
+import numpy as np
 import pytest
 import torch
 
+from videoprism_tpu_torch.io.checkpoints import (
+    params_from_numpy,
+    prepare_for_kernels,
+)
+from videoprism_tpu_torch.models import classifier as vc_lib
 from videoprism_tpu_torch.models import clip as clip_lib
 from videoprism_tpu_torch.models import factorized_encoder as fe
 from videoprism_tpu_torch.models import init as init_lib
-from videoprism_tpu_torch.io.checkpoints import prepare_for_kernels
+from videoprism_tpu_torch.models import registry
+from videoprism_tpu_torch.ops import masks as mask_lib
+from videoprism_tpu_torch.ops import transformer as transformer_lib
 from videoprism_tpu_torch.ops.kernels import _lib
 from videoprism_tpu_torch.ops.kernels import cases as cases_lib
 
@@ -29,81 +40,80 @@ def device():
   return torch.device('cuda', 0)
 
 
-def _check(case):
-  result = cases_lib.run_case(case)
-  assert result['ok'], result
+def _check_all(cases):
+  """Runs every case; fails listing each that disagrees with its twin."""
+  bad = [r for r in map(cases_lib.run_case, cases) if not r['ok']]
+  assert not bad, bad
 
 
-@pytest.mark.parametrize('t', [256, 16])
-@pytest.mark.parametrize('cap', [50.0, 0.0])
-@pytest.mark.parametrize('padded', [False, True])
-def test_attention_block_main_path_shapes(device, t, cap, padded):
-  b = 32 if t == 256 else 512   # two clips of 16 frames x 256 tokens
-  _check(cases_lib.attention_case(b, t, 768, 12, 64, cap=cap, padded=padded,
-                                  device=device))
+def test_kernels_at_the_encoder_and_clip_shapes(device):
+  """K1-K6 at the shapes of two requests: the base encoder's spatial and
+  temporal attention (cap 50 and 0, with and without paddings), its FFN
+  (gelu and relu), the boundaries; the text tower's causal T = 65; K5 at
+  the auxiliary encoder's [2, 12, 4096, 64]; K6 at 8192, 130 and 1 rows."""
+  cases = []
+  # Two clips of 16 frames x 256 tokens, and the text tower's 65 tokens.
+  for b, t, causal in ((32, 256, False), (512, 16, False), (2, 65, True)):
+    for cap in (50.0, 0.0):
+      for padded in (False, True):
+        cases.append(cases_lib.attention_case(b, t, 768, 12, 64, cap=cap,
+                                              padded=padded, causal=causal,
+                                              device=device))
+  for activation in ('gelu', 'relu'):
+    for padded in (False, True):
+      cases.append(cases_lib.ffn_case(8192, 768, 3072, activation=activation,
+                                      padded=padded, device=device))
+  cases += cases_lib.boundary_cases(2, 16, 256, 768, device=device)
+  for cap in (50.0, 0.0):
+    for mask in ('none', 'keys', 'rows'):
+      cases.append(cases_lib.flash_case(2, 12, 4096, 4096, 64, cap=cap,
+                                        mask=mask, device=device))
+  for rows in (8192, 130, 1):
+    for direct_scale in (False, True):
+      cases.append(cases_lib.layer_norm_case(rows, 768,
+                                             direct_scale=direct_scale,
+                                             device=device))
+  _check_all(cases)
 
 
-@pytest.mark.parametrize('t', [4, 40, 100])
-@pytest.mark.parametrize('cap', [50.0, 0.0])
-def test_attention_block_ragged_lengths(device, t, cap):
-  _check(cases_lib.attention_case(6, t, 128, 2, 64, cap=cap, padded=True,
-                                  device=device))
-
-
-@pytest.mark.parametrize('heads,head_dim', [(2, 88), (1, 128), (4, 8)])
-def test_attention_block_head_dims(device, heads, head_dim):
-  """Giant's 88-wide heads (padded to 96 inside), 128, and 8."""
-  _check(cases_lib.attention_case(4, 24, 176, heads, head_dim, cap=50.0,
+def test_kernels_at_ragged_shapes(device):
+  """K1 at lengths off the tiles (4, 40, 100) and at head dims 88 (giant's,
+  padded to 96 inside), 128 and 8; K2 with ragged rows; K5 with query and
+  key counts off the tiles and other head widths."""
+  cases = []
+  for t in (4, 40, 100):
+    for cap in (50.0, 0.0):
+      cases.append(cases_lib.attention_case(6, t, 128, 2, 64, cap=cap,
+                                            padded=True, device=device))
+  for heads, head_dim in ((2, 88), (1, 128), (4, 8)):
+    cases.append(cases_lib.attention_case(4, 24, 176, heads, head_dim,
+                                          cap=50.0, padded=True,
+                                          device=device))
+  cases.append(cases_lib.ffn_case(200, 136, 264, activation='gelu',
                                   padded=True, device=device))
+  for t, s, h in ((1, 1, 64), (100, 200, 32), (130, 70, 128), (256, 128, 16)):
+    for mask in ('keys', 'rows'):
+      cases.append(cases_lib.flash_case(3, 2, t, s, h, cap=50.0, mask=mask,
+                                        device=device))
+  _check_all(cases)
 
 
-@pytest.mark.parametrize('activation', ['gelu', 'relu'])
-@pytest.mark.parametrize('padded', [False, True])
-def test_ffn_block_main_path_shapes(device, activation, padded):
-  _check(cases_lib.ffn_case(8192, 768, 3072, activation=activation,
-                            padded=padded, device=device))
-
-
-def test_ffn_block_ragged_rows(device):
-  _check(cases_lib.ffn_case(200, 136, 264, activation='gelu', padded=True,
-                            device=device))
-
-
-@pytest.mark.parametrize('which', [0, 1])
-def test_boundaries_main_path_shapes(device, which):
-  _check(cases_lib.boundary_cases(2, 16, 256, 768, device=device)[which])
-
-
-@pytest.mark.parametrize('cap', [50.0, 0.0])
-@pytest.mark.parametrize('padded', [False, True])
-def test_attention_block_causal_text_shapes(device, cap, padded):
-  """The text tower: T = 65 unpadded, causal + padding [B, T, T] mask."""
-  _check(cases_lib.attention_case(2, 65, 768, 12, 64, cap=cap, padded=padded,
-                                  causal=True, device=device))
-
-
-@pytest.mark.parametrize('cap', [50.0, 0.0])
-@pytest.mark.parametrize('mask', ['none', 'keys', 'rows'])
-def test_flash_attention_aux_shapes(device, cap, mask):
-  """K5 at the auxiliary encoder's [2, 12, 4096, 64]."""
-  _check(cases_lib.flash_case(2, 12, 4096, 4096, 64, cap=cap, mask=mask,
-                              device=device))
-
-
-@pytest.mark.parametrize('t,s,h', [(1, 1, 64), (100, 200, 32), (130, 70, 128),
-                                   (256, 128, 16)])
-@pytest.mark.parametrize('mask', ['keys', 'rows'])
-def test_flash_attention_ragged_shapes(device, t, s, h, mask):
-  """Query and key counts off the tile sizes, and other head widths."""
-  _check(cases_lib.flash_case(3, 2, t, s, h, cap=50.0, mask=mask,
-                              device=device))
-
-
-@pytest.mark.parametrize('rows', [8192, 130, 1])
-@pytest.mark.parametrize('direct_scale', [False, True])
-def test_layer_norm_rows(device, rows, direct_scale):
-  _check(cases_lib.layer_norm_case(rows, 768, direct_scale=direct_scale,
-                                   device=device))
+def test_chunked_kernels(device):
+  """K8a at narrow widths (head groups of 48 columns, not a multiple of the
+  GEMM's 32-deep tile; 4 groups; giant's 88-wide heads) and at giant's
+  spatial and temporal shapes; K8b with ragged rows and F-slices of 136
+  and 64 columns, and at large's and giant's rows."""
+  cases = []
+  for heads, head_dim, chunks in ((4, 24, 2), (4, 32, 4), (2, 88, 2)):
+    for cap in (50.0, 0.0):
+      cases.append(cases_lib.attention_case(6, 40, 136, heads, head_dim,
+                                            cap=cap, padded=True,
+                                            chunks=chunks, device=device))
+  for f, chunks in ((272, 2), (256, 4)):
+    cases.append(cases_lib.ffn_case(200, 136, f, activation='gelu',
+                                    padded=True, chunks=chunks,
+                                    device=device))
+  _check_all(cases + cases_lib.wide_path_cases(device))
 
 
 def test_dispatch_counts_and_refusals(device):
@@ -134,6 +144,99 @@ def test_dispatch_counts_and_refusals(device):
     flash.fn(q, q, q, flash.args[3], **flash.kwargs)
   with pytest.raises(ValueError, match='bfloat16'):
     ln.fn(ln.args[0].float(), *ln.args[1:], **ln.kwargs)
+  # K8a and K8b count their own launches and refuse chunks that do not
+  # divide the heads or leave F-slices off 16-byte rows.
+  att = cases_lib.attention_case(2, 16, 128, 4, 32, cap=50.0, padded=False,
+                                 chunks=2, device=device)
+  ffn = cases_lib.ffn_case(64, 128, 256, activation='relu', padded=False,
+                           chunks=2, device=device)
+  _lib.reset_launches()
+  att.fn(*att.args, **att.kwargs)
+  ffn.fn(*ffn.args, **ffn.kwargs)
+  att.fn(*att.args, **att.kwargs, impl='reference')
+  torch.cuda.synchronize()
+  assert dict(_lib.LAUNCHES) == {'fused_attention_block_chunked': 1,
+                                 'fused_ffn_block_chunked': 1}
+  with pytest.raises(ValueError, match='chunks'):
+    att.fn(*att.args, **dict(att.kwargs, chunks=3))
+  with pytest.raises(ValueError, match='chunks'):
+    ffn.fn(*ffn.args, **dict(ffn.kwargs, chunks=64))   # slices of 4
+
+
+def _layer_params(device, d, heads, f, seed=0):
+  cfg = transformer_lib.TransformerLayerConfig(
+      num_layers=1, hidden_dim=f, num_heads=heads, activation='gelu',
+      enable_per_dim_scale=False, logit_cap=50.0, dtype=torch.bfloat16)
+  init = init_lib._Init(seed, 0.1)
+  params = prepare_for_kernels(params_from_numpy(
+      {'layer': init.layer(d, cfg)}, device=device,
+      dtype=torch.bfloat16))['layer']
+  return params, cfg
+
+
+def _min_cosine(got, want):
+  return torch.nn.functional.cosine_similarity(
+      got.float(), want.float(), -1).min().item()
+
+
+def test_attention_capacity_gate(device):
+  """K1's core holds T <= 784 at H=64 and T <= 544 at H=88 (ROADMAP fault
+  3.1): K1 at those lengths agrees with its twin and one token more raises
+  ValueError naming the limit; a layer at T = 1024 (H=64) and lvt base
+  with a 4-frame clip (auxiliary T = 1024) take K6 + K5 and agree with the
+  plain path; at giant's H=88, which K5 does not take, a layer past the
+  limit raises."""
+  for case in cases_lib.capacity_cases(device):
+    _check_all([case])
+    t = case.args[0].shape[1]
+    longer = cases_lib.attention_case(
+        1, t + 1, case.args[0].shape[2], case.kwargs['num_heads'],
+        case.kwargs['dim_per_head'], cap=50.0, padded=False, device=device)
+    with pytest.raises(ValueError, match=f'T <= {t}'):
+      longer.fn(*longer.args, **longer.kwargs)
+
+  params, cfg = _layer_params(device, 128, 2, 256)
+  gen = torch.Generator(device=device).manual_seed(0)
+  x = torch.randn((2, 1024, 128), generator=gen, device=device,
+                  dtype=torch.bfloat16)
+  pads = torch.zeros((2, 1024), device=device)
+  pads[1, 900:] = 1.0
+  mask = mask_lib.attention_mask_for_fprop(x, pads)
+  _lib.reset_launches()
+  got = transformer_lib.transformer_layer(params, x, pads, mask, cfg)
+  torch.cuda.synchronize()
+  assert dict(_lib.LAUNCHES) == {'fused_layer_norm_2d': 1,
+                                 'fused_attention': 1, 'fused_ffn_block': 1}
+  want = transformer_lib.transformer_layer(params, x, pads, mask, cfg,
+                                           impl='reference')
+  assert _min_cosine(got, want) >= 0.999
+
+  params, cfg = _layer_params(device, 176, 2, 256)
+  t = _lib.max_attention_t(88)
+  x = torch.zeros((1, t + 1, 176), device=device, dtype=torch.bfloat16)
+  pads = torch.zeros((1, t + 1), device=device)
+  mask = mask_lib.attention_mask_for_fprop(x, pads)
+  with pytest.raises(ValueError, match=f'T <= {t}.*multiples of 16'):
+    transformer_lib.transformer_layer(params, x, pads, mask, cfg)
+  out = transformer_lib.transformer_layer(params, x[:, :t], pads[:, :t],
+                                          mask[..., :t], cfg)
+  assert bool(torch.isfinite(out).all())
+
+  model = registry.get_model('videoprism_lvt_public_v1_base',
+                             fprop_dtype=torch.bfloat16)
+  params = prepare_for_kernels(model.init(0, device=device,
+                                          norm_bias_std=0.1)['params'])
+  video = torch.rand((2, 4, 288, 288, 3), generator=gen, device=device)
+  _lib.reset_launches()
+  got, _, _ = model.apply(params, video)
+  torch.cuda.synchronize()
+  assert dict(_lib.LAUNCHES) == {
+      'fused_attention_block': 16, 'fused_ffn_block': 18,
+      'spatial_to_temporal': 1, 'temporal_to_output': 1,
+      'fused_attention': 2, 'fused_layer_norm_2d': 3}
+  want, _, _ = model.apply(params, video, impl='reference')
+  assert got.shape == (2, 768) and bool(torch.isfinite(got).all())
+  assert _min_cosine(got, want) >= 0.999
 
 
 def test_tiny_encoder_kernel_path_matches_reference(device):
@@ -178,8 +281,10 @@ def test_tiny_clip_kernel_path_matches_reference(device):
   _lib.reset_launches()
   got = clip_lib.apply(params, video, ids, pads, cfg)
   torch.cuda.synchronize()
+  # Width 64 is not a multiple of 128, so the reference's plan chains every
+  # FFN in 2 F-slices (K8b).
   assert dict(_lib.LAUNCHES) == {
-      'fused_attention_block': 4, 'fused_ffn_block': 6,
+      'fused_attention_block': 4, 'fused_ffn_block_chunked': 6,
       'spatial_to_temporal': 1, 'temporal_to_output': 1,
       'fused_attention': 2, 'fused_layer_norm_2d': 4}
   want = clip_lib.apply(params, video, ids, pads, cfg, impl='reference')
@@ -187,3 +292,27 @@ def test_tiny_clip_kernel_path_matches_reference(device):
     assert g.shape == (2, 64) and bool(torch.isfinite(g).all())
     cos = torch.nn.functional.cosine_similarity(g.float(), w.float(), -1)
     assert cos.min().item() >= 0.999, cos.min().item()
+
+
+def test_tiny_classifier_kernel_path_matches_reference(device):
+  """A tiny classifier (width 64: the FFN chained in 2 F-slices) against
+  the plain path on the same card."""
+  cfg = vc_lib.VideoClassifierConfig(
+      fe.FactorizedEncoderConfig(
+          patch_size=6, pos_emb_shape=(4, 4, 4), model_dim=64,
+          num_spatial_layers=2, num_temporal_layers=2, num_heads=2,
+          mlp_dim=128, atten_logit_cap=50.0, dtype=torch.bfloat16), 10)
+  params = prepare_for_kernels(init_lib.init_video_classifier(
+      0, cfg, device=device, dtype=torch.bfloat16, norm_bias_std=0.1))
+  video = torch.from_numpy(np.random.default_rng(0).standard_normal(
+      (2, 4, 24, 24, 3)).astype(np.float32)).to(device)
+  _lib.reset_launches()
+  got, _ = vc_lib.apply(params, video, cfg)
+  torch.cuda.synchronize()
+  assert dict(_lib.LAUNCHES) == {
+      'fused_attention_block': 4, 'fused_ffn_block_chunked': 4,
+      'spatial_to_temporal': 1, 'temporal_to_output': 1,
+      'fused_layer_norm_2d': 1}
+  want, _ = vc_lib.apply(params, video, cfg, impl='reference')
+  assert got.shape == (2, 10) and bool(torch.isfinite(got).all())
+  assert _min_cosine(got, want) >= 0.999

@@ -145,9 +145,17 @@ def test_registry_surface():
       assert clip.config.model_dim == width
       assert clip.config.vocabulary_size == 32_000
       assert clip.config.num_auxiliary_layers == 2
+  # Classifiers are built by their functions, not looked up by name, in
+  # the JAX package as here.
   assert not vpt.has_model('videoprism_vc_v1_base')
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
+  assert not jreg.has_model('videoprism_vc_v1_base')
+  with pytest.raises(ValueError, match='not found'):
+    jreg.get_model('videoprism_vc_v1_base')
+  with pytest.raises(ValueError, match='not found'):
     vpt.get_model('videoprism_vc_v1_base')
+  vc = vpt.videoprism_vc_v1_large(400)
+  assert vc.is_classifier and not vc.is_clip
+  assert vc.config.num_classes == 400 and vc.config.encoder.model_dim == 1024
   with pytest.raises(ValueError, match='not found'):
     vpt.get_model('videoprism_public_v9')
 

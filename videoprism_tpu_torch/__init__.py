@@ -2,9 +2,9 @@
 
 The port of ``videoprism_tpu`` (JAX + Pallas for TPU), which stays the
 reference.  This package imports torch and numpy only, never JAX.  So far
-it runs the factorized video encoders and the video-text CLIP models; see
-ROADMAP.md for what is still to port.  Entry points run on the card unless
-asked for the CPU (``device='cpu'``).
+it runs the factorized video encoders, the video-text CLIP models and the
+video classifiers; see ROADMAP.md for what is still to port.  Entry points
+run on the card unless asked for the CPU (``device='cpu'``).
 
     import torch, videoprism_tpu_torch as vp
     model = vp.get_model('videoprism_public_v1_base', fprop_dtype=torch.bfloat16)
@@ -14,6 +14,10 @@ asked for the CPU (``device='cpu'``).
     clip = vp.get_model('videoprism_lvt_public_v1_base', fprop_dtype=torch.bfloat16)
     params = vp.prepare_for_kernels(clip.init(0)['params'])
     video_emb, text_emb, _ = clip.apply(params, video, ids, paddings)  # [B, 768] each
+
+    vc = vp.videoprism_vc_v1_large(vp.K400_NUM_CLASSES, dtype=torch.bfloat16)
+    params = vp.prepare_for_kernels(vc.init(0)['params'])
+    logits, _ = vc.apply(params, video)   # [B, 8, 288, 288, 3] -> [B, 400]
 """
 
 from videoprism_tpu_torch.io.checkpoints import (
@@ -23,15 +27,23 @@ from videoprism_tpu_torch.io.checkpoints import (
 )
 from videoprism_tpu_torch.models.registry import (
     CONFIGS,
+    K400_NUM_CLASSES,
     MODELS,
+    BoundModel,
     Model,
     get_model,
     has_model,
+    load_classifier,
     load_pretrained_weights,
+    videoprism_vc_v1_base,
+    videoprism_vc_v1_giant,
+    videoprism_vc_v1_large,
 )
 
 __all__ = [
-    'CONFIGS', 'MODELS', 'Model', 'get_model', 'has_model',
-    'load_checkpoint', 'load_pretrained_weights', 'params_from_numpy',
-    'prepare_for_kernels',
+    'CONFIGS', 'K400_NUM_CLASSES', 'MODELS', 'BoundModel', 'Model',
+    'get_model', 'has_model', 'load_checkpoint', 'load_classifier',
+    'load_pretrained_weights', 'params_from_numpy', 'prepare_for_kernels',
+    'videoprism_vc_v1_base', 'videoprism_vc_v1_giant',
+    'videoprism_vc_v1_large',
 ]

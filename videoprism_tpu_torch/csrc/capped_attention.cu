@@ -231,6 +231,16 @@ size_t capped_attention_smem_bytes(int T, int H) {
   return w ? attn_layout(T, H, w).total : 0;
 }
 
+// The longest sequence the kernel holds at head dim H: the last T (a
+// multiple of 16, since K and V rows are padded to 16) whose one-warp
+// layout fits; 0 when H is not taken at all.
+int capped_attention_max_t(int H) {
+  if (H % 8 != 0 || H > 128) return 0;
+  int t = 0;
+  while (attn_layout(t + 16, H, 1).total <= static_cast<size_t>(kMaxSmem)) t += 16;
+  return t;
+}
+
 cudaError_t launch_capped_attention(const bf16* qkv, const float* mask, bf16* ctx, int batch,
                                     int T, int num_heads, int head_dim, int mask_b, int mask_t,
                                     float logit_cap, cudaStream_t stream) {
@@ -251,6 +261,6 @@ cudaError_t launch_capped_attention(const bf16* qkv, const float* mask, bf16* ct
 
 }  // namespace vp
 
-extern "C" size_t vp_attention_smem_bytes(int T, int head_dim) {
-  return vp::capped_attention_smem_bytes(T, head_dim);
+extern "C" int vp_attention_max_t(int head_dim) {
+  return vp::capped_attention_max_t(head_dim);
 }

@@ -81,12 +81,14 @@ enum Epilogue : int {
 };
 enum Activation : int { kActNone = 0, kActGelu = 1, kActRelu = 2 };
 
-// out[M, N] = epilogue(a[M, K] @ b[K, N]) in bf16 with fp32 accumulation.
-// pads (1 = padded row, keep = 1 - pad) and residual may be null.
-// Needs K % 8 == 0 and N % 8 == 0.
+// out[M, N] = epilogue(a[M, K] @ b[K, N]) in bf16 with fp32 accumulation;
+// row m of a starts at a + m * lda (lda = K for a contiguous a).
+// bias (kEpiResidual only), pads (1 = padded row, keep = 1 - pad) and
+// residual may be null.  Needs K, N, lda and the offset of a in elements to
+// be multiples of 8 (16-byte rows); a ragged K edge is zero-filled.
 cudaError_t launch_gemm_bf16(const bf16* a, const bf16* b, const bf16* bias, const bf16* pads,
-                             const bf16* residual, bf16* out, int M, int N, int K, int epilogue,
-                             int activation, float col_scale, int scaled_cols,
+                             const bf16* residual, bf16* out, int M, int N, int K, int lda,
+                             int epilogue, int activation, float col_scale, int scaled_cols,
                              cudaStream_t stream);
 
 // Soft-capped softmax attention over a fused [B*T, 3*N*H] q|k|v buffer

@@ -3,10 +3,15 @@
 //
 // Replaces the four matrix products inside K1 (_attn_block_kernel: fused
 // QKV, output projection) and K2 (_ffn_block_kernel: W1, W2) of
-// videoprism_tpu/ops/pallas/transformer_block.py, with their epilogues:
+// videoprism_tpu/ops/pallas/transformer_block.py, and the per-chunk output
+// products of K8a/K8b (_attn_chunk_kernel, _ffn_chunk_kernel), with their
+// epilogues:
 //   kEpiQkv      (acc + bias) * query_scale on the q columns, cast;
 //   kEpiActKeep  act(acc + b1) * keep, cast;              (exact-erf GELU)
-//   kEpiResidual (acc + bias) [* keep] + residual in fp32, cast.
+//   kEpiResidual (acc [+ bias]) [* keep] + residual in fp32, cast.
+// A is read with its own row pitch (lda), so a chunk's K-slice of a wider
+// activation (K8a's ctx columns of one head group, K8b's F-slice of a) is
+// multiplied in place.
 //
 // Bound: tensor-core FLOPs.  At the base model's shapes (K = 768 or 3072,
 // N = 768..3072, M = B * 4096) every product does hundreds of FLOPs per byte
@@ -55,7 +60,7 @@ __global__ void __launch_bounds__(kThreads)
 gemm_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
                  const bf16* __restrict__ bias, const bf16* __restrict__ pads,
                  const bf16* __restrict__ residual, bf16* __restrict__ out, int M, int N, int K,
-                 int epilogue, int act, float col_scale, int scaled_cols) {
+                 int lda, int epilogue, int act, float col_scale, int scaled_cols) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -71,7 +76,7 @@ gemm_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
       int c = tid + i * kThreads;
       int r = c / 4, col = (c % 4) * 8;
       bool ok = (m0 + r < M) && (k0 + col < K);
-      const bf16* src = ok ? a + static_cast<size_t>(m0 + r) * K + k0 + col : a;
+      const bf16* src = ok ? a + static_cast<size_t>(m0 + r) * lda + k0 + col : a;
       cp_async16(As + r * A_LD + col, src, ok);
     }
 #pragma unroll
@@ -136,8 +141,8 @@ gemm_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
       const int row = m0 + warp_m * WM + i * 16 + r;
       const int col = n0 + warp_n * WN + j * 16 + c8;
       if (row < M && col < N) {
-        float v[8], bv[8];
-        unpack8(*reinterpret_cast<const uint4*>(bias + col), bv);
+        float v[8], bv[8] = {};
+        if (bias) unpack8(*reinterpret_cast<const uint4*>(bias + col), bv);
 #pragma unroll
         for (int e = 0; e < 8; ++e) v[e] = stage[r * 16 + c8 + e] + bv[e];
         const float keep = pads ? 1.f - __bfloat162float(pads[row]) : 1.f;
@@ -165,8 +170,8 @@ gemm_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
 }  // namespace
 
 cudaError_t launch_gemm_bf16(const bf16* a, const bf16* b, const bf16* bias, const bf16* pads,
-                             const bf16* residual, bf16* out, int M, int N, int K, int epilogue,
-                             int activation, float col_scale, int scaled_cols,
+                             const bf16* residual, bf16* out, int M, int N, int K, int lda,
+                             int epilogue, int activation, float col_scale, int scaled_cols,
                              cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(gemm_bf16_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -174,7 +179,8 @@ cudaError_t launch_gemm_bf16(const bf16* a, const bf16* b, const bf16* bias, con
   if (err != cudaSuccess) return err;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   gemm_bf16_kernel<<<grid, kThreads, kSmemBytes, stream>>>(a, b, bias, pads, residual, out, M, N, K,
-                                                  epilogue, activation, col_scale, scaled_cols);
+                                                  lda, epilogue, activation, col_scale,
+                                                  scaled_cols);
   return cudaGetLastError();
 }
 

@@ -81,8 +81,9 @@ def prepare_for_kernels(params: dict[str, Any]) -> dict[str, Any]:
   """Adds ``fused`` = {wqkv [.., D, 3NH], bqkv [.., 3NH], wo [.., NH, D]}
   beside every ``self_attention`` tree's (D, N, H) weights, in their dtype.
 
-  Done once at load time, so the attention block (K1) does not concatenate
-  and transpose its projection weights on every forward.  The CLIP
+  Done once at load time, so the attention block (K1, and K8a, which reads
+  a head group as a column block of Wqkv and a row block of Wo) does not
+  concatenate and transpose its projection weights on every forward.  The CLIP
   model's ``auxiliary_encoder`` is left as it is: its 4096-token attention
   runs the composed path (K5), which takes the (D, N, H) weights.  Returns
   a new tree; the other leaves are shared.

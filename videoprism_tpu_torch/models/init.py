@@ -1,8 +1,9 @@
-"""Random parameter trees for the factorized encoder and the video-text
-CLIP model (port of ``videoprism_tpu.models.init``).
+"""Random parameter trees for the factorized encoder, the video-text CLIP
+model and the video classifier (port of ``videoprism_tpu.models.init``).
 
 Each tree has the nesting, leaf names and shapes of the JAX package's
-``init_factorized_encoder`` / ``init_video_clip`` (and so of the public
+``init_factorized_encoder`` / ``init_video_clip`` /
+``init_video_classifier`` (and so of the public
 "repeated" checkpoints), including the stacked leading layer axis.  Values
 come from ``numpy.random.default_rng(seed)``: truncated-normal LeCun
 kernels as in flax, normal(1/sqrt(D)) token and class embeddings, zero
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from videoprism_tpu_torch.io.checkpoints import params_from_numpy
+from videoprism_tpu_torch.models import classifier as classifier_lib
 from videoprism_tpu_torch.models import clip as clip_lib
 from videoprism_tpu_torch.models import factorized_encoder as fe
 from videoprism_tpu_torch.models import text_encoder as te
@@ -29,7 +31,7 @@ Params = dict[str, Any]
 class _Init:
   """Draws every leaf from one generator, in tree order."""
 
-  def __init__(self, seed: int, norm_bias_std: float):
+  def __init__(self, seed: int | tuple[int, ...], norm_bias_std: float):
     self.rng = np.random.default_rng(seed)
     self.std = norm_bias_std
 
@@ -160,6 +162,30 @@ def numpy_video_clip(seed: int, cfg: clip_lib.VideoCLIPConfig, *,
   return params
 
 
+def numpy_classifier_head(seed: int,
+                          cfg: classifier_lib.VideoClassifierConfig, *,
+                          norm_bias_std: float = 0.0) -> Params:
+  """The classifier's pooler and projection (its tree without
+  ``encoder``) as float32 numpy arrays, drawn from a stream of their own so
+  that they do not depend on the encoder's size."""
+  init = _Init((seed, 1), norm_bias_std)
+  d = cfg.encoder.model_dim
+  return {'atten_pooler': init.atten_pooling(d, d, cfg.encoder.num_heads),
+          'projection': init.dense(d, cfg.num_classes)}
+
+
+def numpy_video_classifier(seed: int,
+                           cfg: classifier_lib.VideoClassifierConfig, *,
+                           norm_bias_std: float = 0.0) -> Params:
+  """The classifier's param tree as float32 numpy arrays: the keys and
+  shapes of the JAX package's ``init_video_classifier``."""
+  return {
+      'encoder': numpy_factorized_encoder(seed, cfg.encoder,
+                                          norm_bias_std=norm_bias_std),
+      **numpy_classifier_head(seed, cfg, norm_bias_std=norm_bias_std),
+  }
+
+
 def init_factorized_encoder(seed: int, cfg: fe.FactorizedEncoderConfig, *,
                             device: torch.device | str = 'cuda',
                             dtype: torch.dtype = torch.float32,
@@ -177,4 +203,15 @@ def init_video_clip(seed: int, cfg: clip_lib.VideoCLIPConfig, *,
   """Param tree for ``clip.apply``, as tensors on ``device``."""
   return params_from_numpy(
       numpy_video_clip(seed, cfg, norm_bias_std=norm_bias_std),
+      device=device, dtype=dtype)
+
+
+def init_video_classifier(seed: int,
+                          cfg: classifier_lib.VideoClassifierConfig, *,
+                          device: torch.device | str = 'cuda',
+                          dtype: torch.dtype = torch.float32,
+                          norm_bias_std: float = 0.0) -> Params:
+  """Param tree for ``classifier.apply``, as tensors on ``device``."""
+  return params_from_numpy(
+      numpy_video_classifier(seed, cfg, norm_bias_std=norm_bias_std),
       device=device, dtype=dtype)

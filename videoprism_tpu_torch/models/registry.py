@@ -1,5 +1,6 @@
-"""Model registry and loaders for the video encoders and the video-text
-CLIP models (port of ``videoprism_tpu.models.registry``).
+"""Model registry and loaders for the video encoders, the video-text CLIP
+models and the video classifiers (port of
+``videoprism_tpu.models.registry``).
 
 ``get_model(name)`` returns a :class:`Model` whose ``apply(variables, ...)``
 takes the JAX package's calling convention, with a bare param tree or a
@@ -9,9 +10,11 @@ takes the JAX package's calling convention, with a bare param tree or a
   -> ``(embeddings [B, T*N, D], intermediates)``;
 * a CLIP model: ``apply(variables, inputs=None, text_token_ids=None,
   text_paddings=None, **kw)`` -> ``(video [B, D] | None, text [B, D] |
-  None, intermediates)``.
-
-The classifier models are not ported yet.
+  None, intermediates)``;
+* a classifier (``videoprism_vc_v1_*(num_classes)``, or
+  :func:`load_classifier`): ``apply(variables, video)`` -> ``(logits
+  [B, num_classes], intermediates)``.  As in the JAX package, classifiers
+  are built by their functions and are not in ``MODELS``.
 """
 
 from __future__ import annotations
@@ -23,12 +26,14 @@ from typing import Any
 import torch
 
 from videoprism_tpu_torch.io import checkpoints as ckpt_lib
+from videoprism_tpu_torch.models import classifier as classifier_lib
 from videoprism_tpu_torch.models import clip as clip_lib
 from videoprism_tpu_torch.models import factorized_encoder as fe
 from videoprism_tpu_torch.models import init as init_lib
 
 # Vocabulary of the c4_en SentencePiece model the CLIP text towers use.
 TEXT_VOCAB_SIZE = 32_000
+K400_NUM_CLASSES = 400
 
 # HuggingFace checkpoints: (repository, filename).
 CHECKPOINTS = {
@@ -68,6 +73,17 @@ CONFIGS = {
         atten_logit_cap=50.0,
         scan=True,
     ),
+    'videoprism_v1_giant': dict(
+        patch_size=18,
+        pos_emb_shape=(8, 16, 16),
+        model_dim=1408,
+        num_spatial_layers=40,
+        num_temporal_layers=4,
+        num_heads=16,
+        mlp_dim=6144,
+        atten_logit_cap=50.0,
+        scan=True,
+    ),
     'videoprism_lvt_v1_base': dict(
         patch_size=18,
         pos_emb_shape=(16, 16, 16),
@@ -100,17 +116,13 @@ CONFIGS = {
     ),
 }
 
-_NOT_PORTED = (
-    'the classifier models are not ported to PyTorch yet; see ROADMAP.md, '
-    'queue 1 item 8')
-
-
 @dataclasses.dataclass
 class Model:
-  """Static config + apply/init of an encoder or a CLIP model (by the type
-  of ``config``)."""
+  """Static config + apply/init of an encoder, a CLIP model or a
+  classifier (by the type of ``config``)."""
 
-  config: fe.FactorizedEncoderConfig | clip_lib.VideoCLIPConfig
+  config: (fe.FactorizedEncoderConfig | clip_lib.VideoCLIPConfig
+           | classifier_lib.VideoClassifierConfig)
   name: str | None = None
 
   @staticmethod
@@ -123,19 +135,25 @@ class Model:
   def is_clip(self) -> bool:
     return isinstance(self.config, clip_lib.VideoCLIPConfig)
 
+  @property
+  def is_classifier(self) -> bool:
+    return isinstance(self.config, classifier_lib.VideoClassifierConfig)
+
   def apply(self, variables, *args, **kwargs):
     """``clip.apply`` (inputs, text_token_ids, text_paddings, normalize,
-    return_intermediate, frame_paddings, impl) or ``fe.apply`` (inputs,
-    return_intermediate, frame_paddings, impl)."""
-    fn = clip_lib.apply if self.is_clip else fe.apply
+    return_intermediate, frame_paddings, impl), ``classifier.apply`` or
+    ``fe.apply`` (inputs, return_intermediate, frame_paddings, impl)."""
+    fn = (clip_lib.apply if self.is_clip else
+          classifier_lib.apply if self.is_classifier else fe.apply)
     return fn(self._unwrap(variables), *args, cfg=self.config, **kwargs)
 
   def init(self, seed: int, *, device: torch.device | str = 'cuda',
            norm_bias_std: float = 0.0) -> dict[str, Any]:
     """Seeded random params as tensors on ``device`` (the card unless
     asked otherwise; raises without one)."""
-    fn = (init_lib.init_video_clip if self.is_clip
-          else init_lib.init_factorized_encoder)
+    fn = (init_lib.init_video_clip if self.is_clip else
+          init_lib.init_video_classifier if self.is_classifier else
+          init_lib.init_factorized_encoder)
     return {'params': fn(seed, self.config, device=device,
                          dtype=self.config.dtype,
                          norm_bias_std=norm_bias_std)}
@@ -143,6 +161,21 @@ class Model:
   def replace_config(self, **updates) -> 'Model':
     return dataclasses.replace(
         self, config=dataclasses.replace(self.config, **updates))
+
+
+@dataclasses.dataclass
+class BoundModel:
+  """A model with its weights attached, callable as ``model(video)``."""
+
+  model: Model
+  params: Any
+
+  def __call__(self, *args, **kwargs):
+    return self.model.apply(self.params, *args, **kwargs)
+
+  @property
+  def config(self):
+    return self.model.config
 
 
 def _encoder_model(config_name: str) -> Model:
@@ -158,6 +191,10 @@ def videoprism_v1_large() -> Model:
   return _encoder_model('videoprism_v1_large')
 
 
+def videoprism_v1_giant() -> Model:
+  return _encoder_model('videoprism_v1_giant')
+
+
 def _clip_model(config_name: str) -> Model:
   return Model(clip_lib.VideoCLIPConfig(**CONFIGS[config_name],
                                         vocabulary_size=TEXT_VOCAB_SIZE),
@@ -170,6 +207,27 @@ def videoprism_lvt_v1_base() -> Model:
 
 def videoprism_lvt_v1_large() -> Model:
   return _clip_model('videoprism_lvt_v1_large')
+
+
+def _classifier_model(config_name: str, num_classes: int,
+                      **overrides) -> Model:
+  """``overrides`` (e.g. ``dtype``) replace fields of the encoder config."""
+  return Model(classifier_lib.VideoClassifierConfig(
+      encoder=fe.FactorizedEncoderConfig(**{**CONFIGS[config_name],
+                                            **overrides}),
+      num_classes=num_classes), name=config_name)
+
+
+def videoprism_vc_v1_base(num_classes: int, **overrides) -> Model:
+  return _classifier_model('videoprism_v1_base', num_classes, **overrides)
+
+
+def videoprism_vc_v1_large(num_classes: int, **overrides) -> Model:
+  return _classifier_model('videoprism_v1_large', num_classes, **overrides)
+
+
+def videoprism_vc_v1_giant(num_classes: int, **overrides) -> Model:
+  return _classifier_model('videoprism_v1_giant', num_classes, **overrides)
 
 
 MODELS: dict[str, Callable[[], Model]] = {
@@ -204,8 +262,6 @@ def get_model(model_name: str,
   """
   name = _resolve_name(model_name)
   if name is None or name not in MODELS:
-    if model_name.startswith('videoprism_vc'):
-      raise NotImplementedError(f'{model_name}: {_NOT_PORTED}')
     raise ValueError(f'Model `{model_name}` not found.')
   model = MODELS[name]()
   if fprop_dtype is not None:
@@ -230,3 +286,63 @@ def load_pretrained_weights(model_name: str | None,
         'npz and pass checkpoint_path=')
   return ckpt_lib.params_from_numpy(ckpt_lib.load_checkpoint(checkpoint_path),
                                     device=device, dtype=dtype)
+
+
+def _flat_keys(tree, prefix: str = '') -> set[str]:
+  keys = set()
+  for k, v in tree.items():
+    if isinstance(v, Mapping):
+      keys |= _flat_keys(v, f'{prefix}{k}/')
+    else:
+      keys.add(prefix + k)
+  return keys
+
+
+def load_classifier(model_name: str, num_classes: int,
+                    checkpoint_path: str | None = None, *, seed: int = 0,
+                    device: torch.device | str = 'cuda',
+                    dtype: torch.dtype = torch.float32) -> BoundModel:
+  """A classifier whose encoder comes from a pretrained checkpoint (a local
+  npz) and whose pooler and ``num_classes``-way projection are freshly
+  drawn from ``seed``; tensors on ``device`` (the card unless asked
+  otherwise).
+
+  The backbone is the checkpoint's ``vision_encoder`` subtree for lvt
+  names and the whole tree otherwise; the encoder config is the large or
+  giant one when the name says so, else base.  A missing subtree raises
+  ``KeyError`` and a tree whose keys differ from the encoder's raises
+  ``ValueError``: it never proceeds on random weights.  ``dtype`` sets the
+  params' and the activations' dtype.
+  """
+  config_name = ('videoprism_v1_large' if 'large' in model_name else
+                 'videoprism_v1_giant' if 'giant' in model_name else
+                 'videoprism_v1_base')
+  model = _classifier_model(config_name, num_classes, dtype=dtype)
+  if checkpoint_path is None:
+    raise ValueError(
+        f'loading {model_name!r} by name needs a download from HuggingFace '
+        f'({CHECKPOINTS.get(model_name, "unknown repository")}); fetch the '
+        'npz and pass checkpoint_path=')
+  pretrained = Model._unwrap(ckpt_lib.load_checkpoint(checkpoint_path))
+  backbone = pretrained
+  if model_name.startswith('videoprism_lvt'):
+    if 'vision_encoder' not in pretrained:
+      raise KeyError(
+          f'Checkpoint for {model_name} has no `vision_encoder` subtree; '
+          f'top-level keys: {sorted(pretrained)}')
+    backbone = pretrained['vision_encoder']
+  # The encoder's keys depend on its layer layout, not on its widths: a
+  # narrow copy of the config gives them without drawing the full tree.
+  narrow = dataclasses.replace(model.config.encoder, model_dim=8, num_heads=1,
+                               mlp_dim=8, patch_size=1)
+  expected = _flat_keys(init_lib.numpy_factorized_encoder(0, narrow))
+  got = _flat_keys(backbone)
+  if got != expected:
+    raise ValueError(
+        'Backbone checkpoint structure does not match the classifier '
+        f'encoder: missing {sorted(expected - got)}, unexpected '
+        f'{sorted(got - expected)}')
+  tree = {'encoder': backbone,
+          **init_lib.numpy_classifier_head(seed, model.config)}
+  return BoundModel(model, ckpt_lib.params_from_numpy(tree, device=device,
+                                                      dtype=dtype))

@@ -44,8 +44,8 @@ LAUNCHES: collections.Counter = collections.Counter()
 # Argument codes of the C entry points: p pointer (or the stream), i int,
 # f float.  The stream is appended by launch().
 _SIGNATURES = {
-    'vp_attention_block': 'pppppppppppp' 'iiiiiii' 'fff' 'p',
-    'vp_ffn_block': 'ppppppppppp' 'iiii' 'f' 'p',
+    'vp_attention_block': 'ppppppppppppp' 'iiiiiiii' 'fff' 'p',
+    'vp_ffn_block': 'pppppppppppp' 'iiiii' 'f' 'p',
     'vp_spatial_to_temporal': 'ppppp' 'iiii' 'f' 'p',
     'vp_temporal_to_output': 'pppp' 'iiii' 'f' 'p',
     'vp_layer_norm': 'pppp' 'iii' 'f' 'p',
@@ -157,11 +157,24 @@ def library() -> ctypes.CDLL:
     fn = getattr(lib, name)
     fn.argtypes = [_CTYPES[c] for c in codes]
     fn.restype = ctypes.c_int
-  lib.vp_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-  lib.vp_attention_smem_bytes.restype = ctypes.c_size_t
+  lib.vp_attention_max_t.argtypes = [ctypes.c_int]
+  lib.vp_attention_max_t.restype = ctypes.c_int
   lib.vp_error_string.argtypes = [ctypes.c_int]
   lib.vp_error_string.restype = ctypes.c_char_p
   return lib
+
+
+@functools.cache
+def max_attention_t(head_dim: int) -> int:
+  """The longest sequence K1's attention core (K and V of a head in shared
+  memory) holds at ``head_dim``, 0 when it takes no such head dim."""
+  return library().vp_attention_max_t(head_dim)
+
+
+def attention_fits(t: int, head_dim: int) -> bool:
+  """Whether K1's attention core holds a T-token sequence at this head
+  dim."""
+  return t <= max_attention_t(head_dim)
 
 
 def launch(name: str, device: torch.device, *args) -> None:

@@ -3,16 +3,23 @@
 
 A 'pre'-policy layer with bias, gelu/relu and no per-dim scale (every layer
 of the video and text towers) runs as two fused half-layers, mirroring the
-JAX package's choice in ``_try_fused_layer``: K1 ``fused_attention_block``
-when T <= 1024 and the mask covers T, else the composed attention half (K6
-LayerNorm, ``multi_head_attention(impl='flash')`` with K5, residual: the
-4096-token auxiliary encoder); then K2 ``fused_ffn_block``
-(``ops/kernels/``).  Other 'pre' layers run the composed path
-(``multi_head_attention`` + :func:`transformer_ffn`).  The stack is a Python
-loop over the leading layer axis of ``x_layers`` (or over ``x_layers_{i}``
-when ``scan=False``); the JAX package's ``lax.scan``, remat, 128-row
-small-sequence packing and pad to a multiple of 8 tokens have no
-counterpart here.
+JAX package's choice in ``_try_fused_layer``:
+
+* attention: K1 ``fused_attention_block``, or K8a
+  ``fused_attention_block_chunked`` where the reference chains head groups
+  (:func:`chunk_plan`), when T <= 1024, the mask covers T and, on the card,
+  K1's attention core holds T at the head dim; else the composed attention
+  half (K6 LayerNorm, ``multi_head_attention(impl='flash')`` with K5,
+  residual: the 4096-token auxiliary encoder);
+* FFN: K8b ``fused_ffn_block_chunked`` where the reference chains F-slices,
+  else K2 ``fused_ffn_block`` (``ops/kernels/``).
+
+Other 'pre' layers run the composed path (``multi_head_attention`` +
+:func:`transformer_ffn`).  The stack is a Python loop over the leading
+layer axis of ``x_layers`` (or over ``x_layers_{i}`` when ``scan=False``);
+the JAX package's ``lax.scan``, remat, 128-row small-sequence packing and
+pad to a multiple of 8 tokens have no counterpart here (the chunk plan
+still reads the lengths the reference's packing and padding give).
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import torch
 from videoprism_tpu_torch.ops import attention as attention_lib
 from videoprism_tpu_torch.ops import basic
 from videoprism_tpu_torch.ops import masks as mask_lib
+from videoprism_tpu_torch.ops.kernels import _lib
 from videoprism_tpu_torch.ops.kernels import transformer_block as tb
 
 Params = dict[str, Any]
@@ -84,10 +92,37 @@ def fused_layer_supported(cfg: TransformerLayerConfig) -> bool:
           and cfg.activation in ('gelu', 'relu'))
 
 
-def fused_attention_supported(t: int, atten_mask: torch.Tensor) -> bool:
-  """Whether K1 takes a T-token sequence under ``atten_mask`` (the JAX
-  gate without its TPU tiling terms: T <= 1024, the mask covers T)."""
-  return t <= MAX_FUSED_ATTENTION_T and atten_mask.shape[-1] == t
+def fused_attention_supported(t: int, atten_mask: torch.Tensor,
+                              dim_per_head: int | None = None) -> bool:
+  """Whether K1 (or K8a) takes a T-token sequence under ``atten_mask``: the
+  JAX gate without its TPU tiling terms (T <= 1024, the mask covers T)
+  and, given ``dim_per_head`` (the kernel path on the card), the capacity
+  of K1's attention core, which keeps a head's K and V in shared memory."""
+  return (t <= MAX_FUSED_ATTENTION_T and atten_mask.shape[-1] == t
+          and (dim_per_head is None or _lib.attention_fits(t, dim_per_head)))
+
+
+def chunk_plan(b: int, t: int, d: int, num_heads: int, dim_per_head: int,
+               f: int, itemsize: int, *, causal: bool
+               ) -> tuple[int | None, int | None]:
+  """(K8a chunks, K8b chunks): the counts the reference's
+  ``_try_fused_layer`` picks for a [B, T, D] layer, None for a half it
+  runs unchunked.  It sees T padded to a multiple of 8 and, without a
+  causal mask, sequences shorter than 128 packed 128 // T to a sequence
+  (``stacked_transformer``); the FFN sees all rows at once.
+  """
+  t_ref = t + (-t) % 8
+  rows = b * t_ref
+  group = 128 // t_ref if t_ref < 128 and 128 % t_ref == 0 else 1
+  if not causal and group > 1 and b % group == 0:
+    t_ref *= group
+  nh = num_heads * dim_per_head
+  attn_chunks = (None if tb.attention_block_supported(t_ref, d, nh, itemsize)
+                 else tb.attention_chunks_for(t_ref, d, num_heads,
+                                              dim_per_head, itemsize))
+  ffn_chunks = (None if tb.ffn_block_supported(rows, d, f, itemsize)
+                else tb.ffn_chunks_for(rows, d, f, itemsize))
+  return attn_chunks, ffn_chunks
 
 
 def fused_attention_weights(attn: Params, dtype: torch.dtype
@@ -115,6 +150,11 @@ def transformer_layer(params: Params, inputs: torch.Tensor,
 
   ``params['self_attention']['fused']`` (from ``prepare_for_kernels``) holds
   the fused projection weights; without it they are built on every call.
+  The halves follow the module docstring.  Where the reference runs its
+  composed FFN because no chunking fits its VMEM, the port keeps K2, which
+  takes any row count.  On the card, a sequence that K1's attention core
+  cannot hold takes the composed half, and raises ``ValueError`` naming the
+  limit where K5 cannot take the head dim either (giant's 88).
   """
   _check_policy(cfg)
   dtype = cfg.dtype
@@ -129,20 +169,35 @@ def transformer_layer(params: Params, inputs: torch.Tensor,
     return transformer_ffn(params['ff_layer'], x, paddings, cfg, impl=impl)
 
   b, t, d = inputs.shape
-  attn = params['self_attention']
+  attn, ff = params['self_attention'], params['ff_layer']
+  _, n, h = attn['query']['w'].shape
+  f = ff['ffn_layer1']['linear']['kernel'].shape[-1]
+  attn_chunks, ffn_chunks = chunk_plan(
+      b, t, d, n, h, f, inputs.element_size(),
+      causal=cfg.enable_causal_atten)
   cast = lambda a: basic.cast_floating(a, dtype)
-  if fused_attention_supported(t, atten_mask):
-    _, n, h = attn['query']['w'].shape
+  on_card = _lib.use_kernel(impl, inputs)
+  if fused_attention_supported(t, atten_mask, h if on_card else None):
     fused = attn.get('fused') or fused_attention_weights(attn, dtype)
-    x = tb.fused_attention_block(
+    kw = dict(num_heads=n, dim_per_head=h, logit_cap=cfg.logit_cap,
+              epsilon=1e-6, query_scale=h ** -0.5, impl=impl)
+    if attn_chunks:
+      block, kw['chunks'] = tb.fused_attention_block_chunked, attn_chunks
+    else:
+      block = tb.fused_attention_block
+    x = block(
         inputs, atten_mask.squeeze(1).float(),
         cast(params['layer_norm']['scale']),
         cast(params['layer_norm']['bias']),
         cast(fused['wqkv']), cast(fused['bqkv']), cast(fused['wo']),
-        cast(attn['post']['b']),
-        num_heads=n, dim_per_head=h, logit_cap=cfg.logit_cap, epsilon=1e-6,
-        query_scale=h ** -0.5, impl=impl)
+        cast(attn['post']['b']), **kw)
   else:   # the composed attention half: K6 LN, K5 attention, residual
+    if on_card and h % 16:
+      raise ValueError(
+          f'T={t} at head dim {h}: the fused attention kernel holds T <= '
+          f'{min(_lib.max_attention_t(h), MAX_FUSED_ATTENTION_T)} at this '
+          'head dim, and the long-sequence attention kernel (K5) takes head '
+          'dims that are multiples of 16 only')
     normed = basic.layer_norm(params['layer_norm'], inputs, dtype=dtype,
                               impl=impl)
     x = inputs + attention_lib.multi_head_attention(
@@ -151,17 +206,20 @@ def transformer_layer(params: Params, inputs: torch.Tensor,
         enable_per_dim_scale=False, dtype=dtype, impl='flash',
         kernel_impl=impl)
 
-  ff = params['ff_layer']
   pad_rows = (paddings.reshape(b * t, 1).to(dtype) if paddings is not None
               else torch.zeros((b * t, 1), dtype=dtype, device=inputs.device))
-  out = tb.fused_ffn_block(
+  kw = dict(activation=cfg.activation, epsilon=1e-6, impl=impl)
+  if ffn_chunks:
+    block, kw['chunks'] = tb.fused_ffn_block_chunked, ffn_chunks
+  else:
+    block = tb.fused_ffn_block
+  out = block(
       x.reshape(b * t, d), pad_rows,
       cast(ff['layer_norm']['scale']), cast(ff['layer_norm']['bias']),
       cast(ff['ffn_layer1']['linear']['kernel']),
       cast(ff['ffn_layer1']['linear']['bias']),
       cast(ff['ffn_layer2']['linear']['kernel']),
-      cast(ff['ffn_layer2']['linear']['bias']),
-      activation=cfg.activation, epsilon=1e-6, impl=impl)
+      cast(ff['ffn_layer2']['linear']['bias']), **kw)
   return out.reshape(b, t, d)
 
 
