@@ -10,12 +10,16 @@ result):
                   kernel's registers, shared memory and spills, and the
                   longest sequence K1's attention core holds per head dim;
   3. kernels      every kernel against its plain twin at the shapes of the
-                  encoder, CLIP and classifier paths for two requests, and
-                  K1 at its capacity (ops/kernels/cases.py tolerances; K8a
-                  and K8b also against their one-chunk twins); each
+                  encoder, CLIP, classifier and int8 paths for two requests
+                  (K9 and K10 also at 2 chunks, K11 at (2, 2)) and of the
+                  int8 giant encoder for one (K10 and K9 at 2 chunks), and
+                  K1 at its capacity (ops/kernels/cases.py tolerances;
+                  K8a, K8b and chunked K9/K10 also against their one-chunk
+                  twins); each
                   kernel's time per call (CUDA events) and on the device
                   (profiler) beside its twin's, its bound and a library
-                  call's;
+                  call's (int8 kernels: torch._int_mm over their int8
+                  products);
   4. gate         a layer at T = 1024 (past K1's capacity at H = 64) takes
                   K6 + K5 and agrees with the plain path; at giant's head
                   dim a sequence past K1's capacity raises ValueError;
@@ -44,12 +48,44 @@ result):
  11. vc-golden    the tiny classifier of
                   tests/data/torch_port_classifier_golden.npz through the
                   kernels in bf16 against the JAX package's fp32 logits;
- 12. times        the encoder forward, the video + text CLIP request and the
+ 12. int8         load_video_encoder('videoprism_public_v1_base', <seeded
+                  fp32 npz>, quantize='int8', fprop_dtype=bfloat16) answers
+                  1, 2 and 8 clips: [B, 4096, 768], finite, the launches and
+                  K9/K10 chunk counts that the copied route rule
+                  (ops/transformer.py int8_plan) gives (K11 per layer at
+                  B <= 2, K10 + K9 at B = 8); the B=2 output against the
+                  int8 plain path (impl='reference': least per-token
+                  cosine >= 0.999) and no farther than 2x the bf16 plain
+                  path from the fp32-activation int8 plain path, and its
+                  cosine to the bf16 float kernel path (recorded, not
+                  gated);
+ 13. int8-clip    load_model('videoprism_lvt_public_v1_base', ...,
+                  quantize='int8') answers video + text at 1, 2 and 8 with
+                  the planned launches (the auxiliary encoder's K12a + K5 +
+                  K12b and K9, the text tower's K11); the B=2 embeddings
+                  likewise;
+ 14. int8-giant   the giant encoder (40 + 4 layers, D 1408, 16 x 88, F
+                  6144) with quantize_for_serving on phase 10's seeded fp32
+                  encoder subtree answers 1 and 2 clips of 8x288x288x3 with
+                  the planned launches (K10 over 2 head groups and K9 over 2
+                  F-slices in the spatial stack, K10 in one group and K9 over
+                  2 in the temporal one), peak device memory; the B=2 output
+                  likewise, its cosine to the int8 plain path gated over
+                  the whole output (per token it sits at the bf16 floor
+                  that the fp32 comparison shows);
+ 15. int8-golden  the tiny int8 configs of tests/data/torch_port_int8_golden.npz
+                  through the kernels in bf16 against the JAX package's fp32
+                  int8-kernel outputs (3x the bf16 twin's CPU error);
+ 16. times        the encoder forward, the video + text CLIP request and the
                   large classifier's forward at 1 and 8, and the giant
                   classifier's at 1, kernel path and impl='reference', with
-                  CUDA events after warm-up.
-Counts of kernel launches are set to 0 before each path's phase (5, 7, 9
-and 10) and read after it.  The line before the last is the per-kernel
+                  CUDA events after warm-up; the int8 encoder and int8 CLIP
+                  request at 1 and 8 and the int8 giant encoder at 1 (kernel
+                  path).
+The seeded npz files of phases 12 and 13 are written to a temporary
+directory under build/ and removed.  Counts of kernel launches are set to 0
+before each path's phase (5, 7, 9, 10, 12, 13 and 14) and read after it.
+The line before the last is the per-kernel
 JSON record; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -57,7 +93,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
+import tempfile
 import re
 import subprocess
 import sys
@@ -66,9 +104,11 @@ import time
 import numpy as np
 import torch
 
+from videoprism_tpu_torch import quantization
 from videoprism_tpu_torch.io.checkpoints import (
     params_from_numpy,
     prepare_for_kernels,
+    save_checkpoint,
 )
 from videoprism_tpu_torch.models import classifier as vc_lib
 from videoprism_tpu_torch.models import clip as clip_lib
@@ -86,6 +126,8 @@ CLIP_GOLDEN = os.path.join(ROOT, 'tests', 'data',
                            'torch_port_clip_golden.npz')
 VC_GOLDEN = os.path.join(ROOT, 'tests', 'data',
                          'torch_port_classifier_golden.npz')
+INT8_GOLDEN = os.path.join(ROOT, 'tests', 'data',
+                           'torch_port_int8_golden.npz')
 # Per-token (per-embedding) cosine to the reference that every model-level
 # check demands.
 MIN_COSINE = 0.999
@@ -101,6 +143,8 @@ CLIP_GOLDEN_ATOL = 0.01
 # with |max| 3.8, where one bf16 ulp is 0.016; the bf16 twin is at 0.017 and
 # 0.026 max error on the CPU.  0.08 leaves 3x margin over the larger.
 VC_GOLDEN_ATOL = 0.08
+# int8 golden: 3x the bf16 twin's max error on the CPU, per output.
+INT8_GOLDEN_RATIO = 3.0
 FRAMES, SIZE = 16, 288
 VC_FRAMES = 8
 TEXT_LEN = 64
@@ -131,9 +175,25 @@ KERNELS = {  # wrapper -> (hand-written source, TPU kernel it replaces)
     'fused_ffn_block_chunked': (
         'videoprism_tpu_torch/csrc/transformer_block.cu',
         'videoprism_tpu/ops/pallas/transformer_block.py:500'),
+    'int8_ffn_block_chunked': (
+        'videoprism_tpu_torch/csrc/int8_blocks.cu',
+        'videoprism_tpu/ops/pallas/int8_blocks.py:119'),
+    'int8_attention_block_chunked': (
+        'videoprism_tpu_torch/csrc/int8_blocks.cu',
+        'videoprism_tpu/ops/pallas/int8_blocks.py:288'),
+    'int8_layer_block': (
+        'videoprism_tpu_torch/csrc/int8_blocks.cu',
+        'videoprism_tpu/ops/pallas/int8_blocks.py:524'),
+    'int8_qkv_projection': (
+        'videoprism_tpu_torch/csrc/int8_blocks.cu',
+        'videoprism_tpu/ops/pallas/int8_blocks.py:681'),
+    'int8_out_projection': (
+        'videoprism_tpu_torch/csrc/int8_blocks.cu',
+        'videoprism_tpu/ops/pallas/int8_blocks.py:726'),
 }
 DEVICE_KERNELS = ('ln_rows_kernel', 'gemm_bf16_kernel',
-                  'capped_attention_kernel', 'flash_attention_kernel')
+                  'capped_attention_kernel', 'flash_attention_kernel',
+                  'quant_rows_kernel', 'gemm_i8_kernel')
 _ENCODER = {'fused_attention_block': 16, 'fused_ffn_block': 16,
             'spatial_to_temporal': 1, 'temporal_to_output': 1}
 PER_FORWARD = {k: _ENCODER.get(k, 0) for k in KERNELS}
@@ -246,6 +306,9 @@ def phase_build() -> None:
       template = re.search(r'ILi(\d+)E', line)
       if kernel and template:
         kernel += f'<{template.group(1)}>'
+      elif kernel == 'quant_rows_kernel':
+        kernel += ('<bf16>' if 'quant_rows_kernelI13__nv_bfloat16E' in line
+                   else '<float>')
       spills = ''
     m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', line)
     if m and kernel:
@@ -274,14 +337,18 @@ def phase_kernels(device) -> dict[str, dict]:
   for case in (cases_lib.main_path_cases(device, batch=2)
                + cases_lib.clip_path_cases(device, batch=2)
                + cases_lib.wide_path_cases(device, batch=2)
-               + cases_lib.capacity_cases(device, batch=2)):
+               + cases_lib.capacity_cases(device, batch=2)
+               + cases_lib.int8_path_cases(device, batch=2)
+               + cases_lib.int8_giant_cases(device, batch=1)):
     r = cases_lib.run_case(case)
     chunked = ''
     if 'differ_chunked' in r:
       chunked = (f', elements differing from the chunked twin '
                  f'{r["differ_chunked"]:.4%} / from the one-chunk twin '
-                 f'{r["differ_one_chunk"]:.4%} (max|kernel-one-chunk| '
-                 f'{r["err_vs_one_chunk"]:.3g})')
+                 f'{r["differ_one_chunk"]:.4%}'
+                 + (f' / from the cast-once sum {r["differ_cast_once"]:.4%}'
+                    if 'differ_cast_once' in r else '')
+                 + f' (max|kernel-one-chunk| {r["err_vs_one_chunk"]:.3g})')
     print(f'[kernels] {r["kernel"]} {r["label"]}: max|kernel-twin| '
           f'{r["max_abs_err"]:.3g}, vs fp32 twin {r["err_vs_fp32"]:.3g} '
           f'(bf16 twin {r["twin_err_vs_fp32"]:.3g}){chunked} '
@@ -319,6 +386,30 @@ def phase_kernels(device) -> dict[str, dict]:
                          chunks=2, device=device),
       cases_lib.ffn_case(4096, 1408, 6144, activation='gelu', padded=False,
                          chunks=4, device=device),
+      # The int8 paths' shapes for two requests: K11 at the encoder's
+      # spatial (2, 1) and temporal (1, 1) stacks and the text tower; K10
+      # and K9 at the shapes B = 8 gives them, per two clips; K12a/K12b at
+      # the auxiliary encoder's rows.
+      cases_lib.int8_layer_case(32, 256, 768, 12, 64, 3072, cap=50.0,
+                                padded=False, chunks=(2, 1), device=device),
+      cases_lib.int8_layer_case(512, 16, 768, 12, 64, 3072, cap=50.0,
+                                padded=False, chunks=(1, 1), device=device),
+      cases_lib.int8_layer_case(2, 65, 768, 12, 64, 3072, cap=50.0,
+                                padded=True, causal=True, chunks=(1, 1),
+                                device=device),
+      cases_lib.int8_attention_case(32, 256, 768, 12, 64, cap=50.0,
+                                    padded=False, chunks=1, device=device),
+      cases_lib.int8_attention_case(512, 16, 768, 12, 64, cap=50.0,
+                                    padded=False, chunks=1, device=device),
+      cases_lib.int8_ffn_case(8192, 768, 3072, activation='gelu',
+                              padded=False, chunks=1, device=device),
+      *cases_lib.int8_projection_cases(8192, 768, 768, device=device),
+      # The int8 giant encoder's for one clip: K10 over 2 head groups of
+      # 8 x 88 in the spatial stack, K9 over 2 F-slices.
+      cases_lib.int8_attention_case(8, 256, 1408, 16, 88, cap=50.0,
+                                    padded=False, chunks=2, device=device),
+      cases_lib.int8_ffn_case(2048, 1408, 6144, activation='gelu',
+                              padded=False, chunks=2, device=device),
   ]
   for case in timed:
     run = lambda impl: case.fn(*case.args, **case.kwargs, impl=impl)
@@ -328,11 +419,15 @@ def phase_kernels(device) -> dict[str, dict]:
     library_ms = None
     if case.kernel == 'fused_layer_norm_2d':
       library_ms = cuda_ms(_library_layer_norm(case), warmup=3, iters=20)
+    elif case.kernel.startswith('int8_'):
+      library_ms = cuda_ms(cases_lib.int8_library(case), warmup=3, iters=20)
     bound_ms, bound_by = cases_lib.bound(case)
+    library = 'none' if library_ms is None else f'{library_ms:.4f} ms'
+    if case.kernel.startswith('int8_'):
+      library = f'torch._int_mm over its products {library}'
     print(f'[kernels] time {case.kernel} {case.label}: kernel {ms:.4f} ms '
           f'(device {dev_ms:.4f} ms), plain twin {plain_ms:.4f} ms, library '
-          f'{"none" if library_ms is None else f"{library_ms:.4f} ms"}, '
-          f'bound {bound_ms:.4f} ms ({bound_by})')
+          f'{library}, bound {bound_ms:.4f} ms ({bound_by})')
     rec = record[case.kernel]
     for key, value in (('ms', ms), ('device_ms', dev_ms),
                        ('plain_ms', plain_ms),
@@ -349,6 +444,10 @@ def phase_kernels(device) -> dict[str, dict]:
                                      impl='kernel'), warmup=3, iters=20)
   print(f'[kernels] yardstick {case.label} without a cap: kernel '
         f'{nocap_ms:.4f} ms, scaled_dot_product_attention {sdpa_ms:.4f} ms')
+  k7_ms, k7_by = cases_lib.flash_backward_bound(*q.shape[:3], k.shape[2],
+                                                q.shape[3])
+  print(f'[kernels] K7 (the flash backward, not ported yet): bound at '
+        f'{case.label} {k7_ms:.4f} ms ({k7_by})')
   return record
 
 
@@ -582,7 +681,9 @@ def _vc_video(b: int, device, seed: int) -> torch.Tensor:
 
 
 def phase_vc(device, name: str, batches: tuple[int, ...], tag: str):
-  """A classifier at full width and depth in bf16 on seeded weights."""
+  """A classifier at full width and depth in bf16 on seeded weights;
+  returns the model, its params, the launches and the seeded fp32 numpy
+  encoder subtree."""
   model = getattr(registry, name)(registry.K400_NUM_CLASSES,
                                   dtype=torch.bfloat16)
   start = time.perf_counter()
@@ -626,7 +727,6 @@ def phase_vc(device, name: str, batches: tuple[int, ...], tag: str):
                        return_intermediate=('global_embeddings',))
   model32 = getattr(registry, name)(registry.K400_NUM_CLASSES)
   params32 = params_from_numpy(tree, device=device)
-  del tree
   _, ref32 = model32.apply(params32, video, impl='reference',
                            return_intermediate=('global_embeddings',))
   del params32
@@ -638,7 +738,7 @@ def phase_vc(device, name: str, batches: tuple[int, ...], tag: str):
     print(f'[{tag}] B=2 global embeddings, kernels vs {label}: min cosine '
           f'{cos:.6f}, max abs err {err:.4g}')
     check(cos >= MIN_COSINE, f'{tag} cosine {cos} < {MIN_COSINE} vs {label}')
-  return model, params, launches
+  return model, params, launches, tree['encoder']
 
 
 def phase_vc_golden(device) -> None:
@@ -670,8 +770,285 @@ def phase_vc_golden(device) -> None:
           f'classifier golden mismatch in {key}')
 
 
+def _int8_launches(b: int, cfg, *, clip: bool = False) -> tuple[dict, dict]:
+  """(launches per kernel, K9/K10 launches by chunk count) of one int8
+  request of ``b`` clips, from the copied route rule
+  (``ops/transformer.py`` ``int8_plan``): the encoder's spatial and
+  temporal stacks and boundaries and, for a CLIP video + text request, the
+  auxiliary encoder over 4096 tokens, the causal text tower over 65 and the
+  pooler's and the text tower's LN (K6)."""
+  d, n, f = cfg.model_dim, cfg.num_heads, cfg.mlp_dim
+  frames = cfg.pos_emb_shape[0]
+  tokens = cfg.pos_emb_shape[1] * cfg.pos_emb_shape[2]
+  stacks = [(b * frames, tokens, cfg.num_spatial_layers, False),
+            (b * tokens, frames, cfg.num_temporal_layers, False)]
+  launches = {'spatial_to_temporal': 1, 'temporal_to_output': 1}
+  if clip:
+    stacks += [(b, frames * tokens, cfg.num_auxiliary_layers, False),
+               (b, TEXT_LEN + 1, cfg.num_unimodal_layers, True)]
+    launches['fused_layer_norm_2d'] = 2
+  chunks = {}
+  add = lambda table, key, count: table.__setitem__(
+      key, table.get(key, 0) + count)
+  for rows, t, layers, causal in stacks:
+    plan = transformer_lib.int8_plan(rows, t, d, n, d // n, f, 2,
+                                     causal=causal)
+    check(plan is not None, f'no int8 route at [{rows}, {t}, {d}]')
+    if plan.layer:
+      add(launches, 'int8_layer_block', layers)
+      continue
+    if plan.attn_chunks:
+      add(launches, 'int8_attention_block_chunked', layers)
+      add(chunks, ('int8_attention_block_chunked', plan.attn_chunks), layers)
+    else:
+      check(plan.projected, f'the int8 attention half at [{rows}, {t}, {d}] '
+            'would be dequantized')
+      for k in ('int8_qkv_projection', 'fused_attention',
+                'int8_out_projection'):
+        add(launches, k, layers)
+    check(plan.ffn_chunks is not None,
+          f'the int8 FFN half at [{rows}, {t}, {d}] would be dequantized')
+    add(launches, 'int8_ffn_block_chunked', layers)
+    add(chunks, ('int8_ffn_block_chunked', plan.ffn_chunks), layers)
+  return {k: launches.get(k, 0) for k in KERNELS}, chunks
+
+
+def _int8_run(tag: str, call, b: int, cfg, *, clip: bool = False):
+  """One int8 request with the launches it makes held to the route plan."""
+  before = dict(_lib.LAUNCHES)
+  before_chunks = dict(_lib.CHUNK_LAUNCHES)
+  out = call()
+  torch.cuda.synchronize()
+  per = launches_since(before)
+  per_chunks = {k: v - before_chunks.get(k, 0)
+                for k, v in _lib.CHUNK_LAUNCHES.items()
+                if v - before_chunks.get(k, 0)}
+  want, want_chunks = _int8_launches(b, cfg, clip=clip)
+  check(per == want, f'{tag} B={b}: launches {per} != the plan {want}')
+  check(per_chunks == want_chunks,
+        f'{tag} B={b}: chunk counts {per_chunks} != the plan {want_chunks}')
+  chunked = ', '.join(f'{k} x{c}: {v}' for (k, c), v in
+                      sorted(per_chunks.items())) or 'none'
+  print(f'[{tag}] B={b}: launches { {k: v for k, v in per.items() if v} } '
+        f'= the route plan; K9/K10 by chunk count: {chunked}')
+  return out
+
+
+def _int8_vs_plain(tag: str, label: str, got: torch.Tensor,
+                   ref: torch.Tensor, ref32: torch.Tensor, *,
+                   per_token: bool = True) -> None:
+  """The B=2 output of the int8 kernels against the int8 plain path in
+  bf16 (``ref``) and in fp32 activations (``ref32``, the same int8
+  weights): the cosine to ``ref`` (the least per token, or over the whole
+  output) is at least MIN_COSINE, and the kernels are no farther from
+  ``ref32`` (1 - the least per-token cosine) than FP32_ERR_RATIO times the
+  bf16 plain path is."""
+  cos = cosine_per_token(got, ref)
+  whole = torch.nn.functional.cosine_similarity(
+      got.double().flatten(), ref.double().flatten(), dim=0).item()
+  err = (got.float() - ref.float()).abs().max().item()
+  kernel32, twin32 = cosine_per_token(got, ref32), cosine_per_token(ref, ref32)
+  print(f'[{tag}] B=2 {label}kernels vs the int8 plain path: min '
+        f'per-token cosine {cos:.6f}, over the output {whole:.6f}, max abs '
+        f'err {err:.4g}; vs the fp32-activation int8 plain path: kernels '
+        f'{kernel32:.6f}, bf16 plain path {twin32:.6f}')
+  gated = cos if per_token else whole
+  check(gated >= MIN_COSINE, f'{tag} {label}cosine {gated} < {MIN_COSINE} '
+        'vs the int8 plain path')
+  check(1.0 - kernel32 <= cases_lib.FP32_ERR_RATIO * (1.0 - twin32),
+        f'{tag} {label}kernels farther from the fp32 int8 path ({kernel32}) '
+        f'than {cases_lib.FP32_ERR_RATIO}x the bf16 plain path ({twin32})')
+
+
+def phase_int8(device, tmp: str, float_model, float_params):
+  """The base encoder through load_video_encoder(quantize='int8'): K11 per
+  layer at B <= 2, K10 + K9 at B = 8 (the reference's route)."""
+  name = 'videoprism_public_v1_base'
+  cfg = registry.get_model(name).config
+  start = time.perf_counter()
+  path = os.path.join(tmp, f'{name}.npz')
+  save_checkpoint(path, init_lib.numpy_factorized_encoder(
+      0, cfg, norm_bias_std=0.1))
+  bound = registry.load_video_encoder(name, path, fprop_dtype=torch.bfloat16,
+                                      quantize='int8', device=device)
+  print(f'[int8] {name}: load_video_encoder(quantize=\'int8\', '
+        f'fprop_dtype=bfloat16) from a seeded fp32 npz in '
+        f'{time.perf_counter() - start:.1f} s')
+  _lib.reset_launches()
+  outputs = {}
+  for b in (1, 2, 8):
+    video = _video(b, device, seed=b)
+    out, _ = _int8_run('int8', lambda: bound(video), b, cfg)
+    check(tuple(out.shape) == (b, math.prod(cfg.pos_emb_shape),
+                               cfg.model_dim),
+          f'int8 output shape {out.shape}')
+    check(bool(torch.isfinite(out).all()), f'non-finite int8 output at B={b}')
+    outputs[b] = (video, out)
+  launches = dict(_lib.LAUNCHES)
+
+  video, got = outputs[2]
+  ref, _ = bound(video, impl='reference')
+  bound32 = registry.load_video_encoder(name, path, quantize='int8',
+                                        device=device)
+  ref32, _ = bound32(video, impl='reference')
+  del bound32
+  _int8_vs_plain('int8', '', got, ref, ref32)
+  float_out, _ = float_model.apply(float_params, video)
+  whole = torch.nn.functional.cosine_similarity(
+      got.float().flatten(), float_out.float().flatten(), dim=0).item()
+  print(f'[int8] B=2 int8 vs the bf16 float kernel path (recorded, not '
+        f'gated): cosine over the output {whole:.6f}, min per-token '
+        f'{cosine_per_token(got, float_out):.6f}')
+  return bound, launches
+
+
+def phase_int8_clip(device, tmp: str, float_model, float_params):
+  """lvt base through load_model(quantize='int8'): video + text requests."""
+  cfg = registry.get_model(CLIP_MODEL).config
+  start = time.perf_counter()
+  path = os.path.join(tmp, f'{CLIP_MODEL}.npz')
+  save_checkpoint(path, init_lib.numpy_video_clip(0, cfg, norm_bias_std=0.1))
+  bound = registry.load_model(CLIP_MODEL, path, fprop_dtype=torch.bfloat16,
+                              quantize='int8', device=device)
+  print(f'[int8-clip] {CLIP_MODEL}: load_model(quantize=\'int8\', '
+        f'fprop_dtype=bfloat16) from a seeded fp32 npz in '
+        f'{time.perf_counter() - start:.1f} s')
+  _lib.reset_launches()
+  outputs = {}
+  for b in (1, 2, 8):
+    video, text = _video(b, device, seed=20 + b), _text(b, device, 30 + b)
+    video_emb, text_emb, _ = _int8_run(
+        'int8-clip', lambda: bound(video, *text), b, cfg, clip=True)
+    for label, emb in (('video', video_emb), ('text', text_emb)):
+      check(tuple(emb.shape) == (b, cfg.model_dim),
+            f'int8 {label} shape {emb.shape}')
+      check(bool(torch.isfinite(emb).all()),
+            f'non-finite int8 {label} at B={b}')
+    outputs[b] = (video_emb, text_emb, video, text)
+  launches = dict(_lib.LAUNCHES)
+  got_v, got_t, video, text = outputs[2]
+  ref_v, ref_t, _ = bound(video, *text, impl='reference')
+  bound32 = registry.load_model(CLIP_MODEL, path, quantize='int8',
+                                device=device)
+  ref32_v, ref32_t, _ = bound32(video, *text, impl='reference')
+  del bound32
+  os.remove(path)
+  flt_v, flt_t, _ = float_model.apply(float_params, video, *text)
+  for tower, got, want, want32, flt in (
+      ('video', got_v, ref_v, ref32_v, flt_v),
+      ('text', got_t, ref_t, ref32_t, flt_t)):
+    _int8_vs_plain('int8-clip', f'{tower} ', got, want, want32)
+    print(f'[int8-clip] B=2 {tower} int8 vs the bf16 float kernel path '
+          f'(recorded, not gated): min per-embedding cosine '
+          f'{cosine_per_token(got, flt):.6f}')
+  torch.cuda.empty_cache()
+  return bound, launches
+
+
+def phase_int8_giant(device, encoder_tree, float_encoder_params):
+  """The giant encoder with int8 weights (quantize_for_serving on the
+  classifier's seeded fp32 encoder subtree): K10 over 2 head groups and K9
+  over 2 F-slices in the spatial stack, K10 in one group and K9 over 2 in
+  the temporal one."""
+  model = registry.videoprism_v1_giant().replace_config(dtype=torch.bfloat16)
+  cfg = model.config
+  start = time.perf_counter()
+  tree = quantization.quantize_for_serving(encoder_tree)
+  params = prepare_for_kernels(params_from_numpy(tree, device=device,
+                                                 dtype=torch.bfloat16))
+  torch.cuda.synchronize()
+  print(f'[int8-giant] videoprism_v1_giant: seeded fp32 encoder quantized '
+        f'and loaded in {time.perf_counter() - start:.1f} s, '
+        f'{sum(t.numel() * t.element_size() for t in _leaves(params)) / 2**30:.3f}'
+        ' GiB')
+  _lib.reset_launches()
+  outputs = {}
+  tokens = math.prod(cfg.pos_emb_shape)   # 8 frames of 16 x 16 patches
+  for b in (1, 2):
+    video = _vc_video(b, device, seed=80 + b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 2**30
+    out, _ = _int8_run('int8-giant', lambda: model.apply(params, video), b,
+                       cfg)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    check(tuple(out.shape) == (b, tokens, cfg.model_dim),
+          f'int8 giant output shape {out.shape}')
+    check(bool(torch.isfinite(out).all()),
+          f'non-finite int8 giant output at B={b}')
+    print(f'[int8-giant] B={b}: out {tuple(out.shape)} {out.dtype}, finite, '
+          f'peak device memory {peak_gb:.3f} GiB ({peak_gb - held_gb:.3f} '
+          f'GiB above the {held_gb:.3f} GiB held before the forward)')
+    outputs[b] = (video, out)
+  launches = dict(_lib.LAUNCHES)
+  video, got = outputs[2]
+  ref, _ = model.apply(params, video, impl='reference')
+  params32 = params_from_numpy(tree, device=device)
+  ref32, _ = model.replace_config(dtype=torch.float32).apply(
+      params32, video, impl='reference')
+  del params32, tree
+  # Over 44 layers the bf16 rounding of two implementations drifts apart
+  # (each int8 re-quantization turns an ulp into a code step) about as far
+  # as the bf16 plain path drifts from the fp32-activation one, on every
+  # token alike; the least per-token cosine sits at that floor, printed
+  # beside it.  So the cosine over the whole output is gated here, and the
+  # per-token one through the fp32 ratio.
+  _int8_vs_plain('int8-giant', '', got, ref, ref32, per_token=False)
+  float_out, _ = model.apply(float_encoder_params, video)
+  print(f'[int8-giant] B=2 int8 vs the bf16 float kernel path (recorded, '
+        f'not gated): min per-token cosine '
+        f'{cosine_per_token(got, float_out):.6f}')
+  del ref, ref32, float_out
+  torch.cuda.empty_cache()
+  return registry.BoundModel(model, params), launches
+
+
+def phase_int8_golden(device) -> None:
+  sys.path.insert(0, os.path.join(ROOT, 'scripts'))
+  import make_torch_int8_golden as golden
+
+  g = np.load(INT8_GOLDEN)
+  clip_dict = json.loads(str(g['clip_config']))
+  enc_dict = json.loads(str(g['encoder_config']))
+  check(clip_dict == golden.CLIP_CONFIG and enc_dict == golden.ENCODER_CONFIG,
+        'tests/data/torch_port_int8_golden.npz is not the script\'s config')
+  clip_tree, enc_tree = golden.int8_trees(int(g['param_seed']),
+                                          float(g['norm_bias_std']))
+  video, ids, pads, enc_video, frame_pads, real = golden.make_inputs(
+      int(g['input_seed']))
+  load = lambda tree: prepare_for_kernels(params_from_numpy(
+      tree, device=device, dtype=torch.bfloat16))
+  on_card = lambda a: torch.from_numpy(a).to(device)
+  _lib.reset_launches()
+  video_emb, text_emb, _ = clip_lib.apply(
+      load(clip_tree), on_card(video), on_card(ids), on_card(pads),
+      clip_lib.VideoCLIPConfig(**clip_dict | {
+          'pos_emb_shape': tuple(clip_dict['pos_emb_shape'])},
+                               dtype=torch.bfloat16), impl='kernel')
+  tokens, _ = fe.apply(
+      load(enc_tree), on_card(enc_video), fe.FactorizedEncoderConfig(
+          **enc_dict | {'pos_emb_shape': tuple(enc_dict['pos_emb_shape'])},
+          dtype=torch.bfloat16),
+      frame_paddings=on_card(frame_pads), impl='kernel')
+  torch.cuda.synchronize()
+  ran = {k: v for k, v in _lib.LAUNCHES.items() if k.startswith('int8_')}
+  check(len(ran) == 5 and all(ran.values()),
+        f'the tiny int8 configs did not run K9-K12b: {ran}')
+  for key, got in (('video_embeddings', video_emb),
+                   ('text_embeddings', text_emb),
+                   ('encoder_tokens', tokens[on_card(real)])):
+    want = torch.from_numpy(g[key]).to(device)
+    atol = INT8_GOLDEN_RATIO * float(g[f'bf16_twin_err_{key}'])
+    err = (got.float() - want).abs().max().item()
+    cos = cosine_per_token(got, want)
+    print(f'[int8-golden] tiny int8 config {key}, bf16 kernels vs JAX fp32 '
+          f'int8 kernels: max abs err {err:.4g} (atol {atol:.4g}, 3x the '
+          f'bf16 twin\'s), min cosine {cos:.6f}')
+    check(err <= atol and cos >= MIN_COSINE, f'int8 golden mismatch in {key}')
+
+
 def phase_times(device, model, params, clip_model, clip_params, vc_runs,
-                smi: str) -> None:
+                int8_runs, smi: str) -> None:
   for b in (1, 8):
     video = _video(b, device, seed=10 + b)
     for impl in ('kernel', 'reference'):
@@ -699,6 +1076,17 @@ def phase_times(device, model, params, clip_model, clip_params, vc_runs,
         print(f'[times] {label} B={b} {impl}: {ms:.3f} ms/forward, '
               f'{1000.0 * b / ms:.2f} clips/s ({smi})')
       torch.cuda.empty_cache()
+  # int8 (kernel path): the encoders per forward, CLIP per video + text
+  # request.
+  for label, run, batches, make_video in int8_runs:
+    for b in batches:
+      args = (make_video(b, device, seed=90 + b),)
+      if 'clip' in label:
+        args += _text(b, device, 95 + b)
+      ms = cuda_ms(lambda: run(*args), warmup=2, iters=10)
+      print(f'[times] {label} B={b} kernel: {ms:.3f} ms/request, '
+            f'{1000.0 * b / ms:.2f} clips/s ({smi})')
+      torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -711,19 +1099,34 @@ def main() -> int:
   phase_golden(device)
   clip_model, clip_params, clip_launches = phase_clip(device)
   phase_clip_golden(device)
-  *vc, vc_launches = phase_vc(device, 'videoprism_vc_v1_large', (1, 2, 8),
-                              'vc')
-  *giant, giant_launches = phase_vc(device, 'videoprism_vc_v1_giant', (1, 2),
-                                    'vc-giant')
+  *vc, vc_launches, _ = phase_vc(device, 'videoprism_vc_v1_large', (1, 2, 8),
+                                 'vc')
+  *giant, giant_launches, giant_tree = phase_vc(
+      device, 'videoprism_vc_v1_giant', (1, 2), 'vc-giant')
   phase_vc_golden(device)
+  os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
+  with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as tmp:
+    int8, int8_launches = phase_int8(device, tmp, model, params)
+    int8_clip, int8_clip_launches = phase_int8_clip(device, tmp, clip_model,
+                                                    clip_params)
+  int8_giant, int8_giant_launches = phase_int8_giant(
+      device, giant_tree, giant[1]['encoder'])
+  del giant_tree
+  phase_int8_golden(device)
   phase_times(device, model, params, clip_model, clip_params,
-              (('vc large', vc, (1, 8)), ('vc giant', giant, (1,))), smi)
+              (('vc large', vc, (1, 8)), ('vc giant', giant, (1,))),
+              (('int8 encoder', int8, (1, 8), _video),
+               ('int8 clip video+text', int8_clip, (1, 8), _video),
+               ('int8 giant encoder', int8_giant, (1,), _vc_video)), smi)
   kernels = []
   for k, (source, replaces) in KERNELS.items():
     by_path = {'encoder': encoder_launches.get(k, 0),
                'clip': clip_launches.get(k, 0),
                'vc': vc_launches.get(k, 0),
-               'vc-giant': giant_launches.get(k, 0)}
+               'vc-giant': giant_launches.get(k, 0),
+               'int8-encoder': int8_launches.get(k, 0),
+               'int8-clip': int8_clip_launches.get(k, 0),
+               'int8-giant': int8_giant_launches.get(k, 0)}
     launches = sum(by_path.values())
     check(launches > 0, f'{k} never launched on a path')
     rec = record[k]

@@ -8,10 +8,13 @@ weights, warms up, then traces
 forwards with ``torch.profiler`` and prints the device time per kernel
 name, the share of each, and the device's idle share (wall time of the
 traced forwards minus the device time of their kernels, over the wall
-time).
+time).  ``--quantize int8`` quantizes the seeded fp32 weights for the
+W8A8 kernels (K9-K12b) first: every transformer layer's (a classifier's
+pooler and head stay float).
 
     python scripts/profile_torch_forward.py --batch 8 [--impl reference] \
-        [--model videoprism_lvt_public_v1_base | videoprism_vc_v1_large]
+        [--model videoprism_lvt_public_v1_base | videoprism_vc_v1_large] \
+        [--quantize int8]
 """
 
 from __future__ import annotations
@@ -27,7 +30,12 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from videoprism_tpu_torch.io.checkpoints import prepare_for_kernels  # noqa: E402
+from videoprism_tpu_torch import quantization  # noqa: E402
+from videoprism_tpu_torch.io.checkpoints import (  # noqa: E402
+    params_from_numpy,
+    prepare_for_kernels,
+)
+from videoprism_tpu_torch.models import init as init_lib  # noqa: E402
 from videoprism_tpu_torch.models import registry  # noqa: E402
 
 
@@ -43,6 +51,7 @@ def main() -> None:
                       choices=('kernel', 'reference'))
   parser.add_argument('--iters', type=int, default=3)
   parser.add_argument('--top', type=int, default=12)
+  parser.add_argument('--quantize', choices=('int8',), default=None)
   args = parser.parse_args()
   if not torch.cuda.is_available():
     sys.exit('profile_torch_forward: needs a CUDA device')
@@ -55,8 +64,17 @@ def main() -> None:
   else:
     model = registry.get_model(args.model, fprop_dtype=torch.bfloat16)
     frames = 16
-  params = prepare_for_kernels(
-      model.init(0, device=device, norm_bias_std=0.1)['params'])
+  if args.quantize:
+    init = (init_lib.numpy_video_clip if model.is_clip else
+            init_lib.numpy_video_classifier if model.is_classifier else
+            init_lib.numpy_factorized_encoder)
+    params = prepare_for_kernels(params_from_numpy(
+        quantization.quantize_for_serving(
+            init(0, model.config, norm_bias_std=0.1)),
+        device=device, dtype=torch.bfloat16))
+  else:
+    params = prepare_for_kernels(
+        model.init(0, device=device, norm_bias_std=0.1)['params'])
   gen = torch.Generator(device=device).manual_seed(0)
   video = torch.rand((args.batch, frames, 288, 288, 3), generator=gen,
                      device=device)
@@ -90,7 +108,8 @@ def main() -> None:
   smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                         '--format=csv,noheader'], capture_output=True,
                        text=True, check=False).stdout.strip()
-  print(f'{smi}; {args.model} B={args.batch} impl={args.impl}: wall '
+  print(f'{smi}; {args.model}{" int8" if args.quantize else ""} '
+        f'B={args.batch} impl={args.impl}: wall '
         f'{wall_ms:.3f} ms/forward (host clock, profiler on), device '
         f'{device_ms:.3f} ms, '
         f'idle share {max(0.0, 1.0 - device_ms / wall_ms):.3f}')

@@ -9,13 +9,17 @@ conftest (which imports JAX) cannot:
 Tolerances are those of ``videoprism_tpu_torch.ops.kernels.cases``.  The
 kernel cases are grouped, a few tests to a family of shapes, each running
 every case and reporting every one that disagrees: the suite's item count
-is kept low on purpose (ROADMAP.md, "the item-count trap").
+is kept low on purpose (ROADMAP.md, "the item-count trap"): the int8
+kernels (K9-K12b) run inside ``test_dispatch_counts_and_refusals``.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from videoprism_tpu_torch import quantization
 from videoprism_tpu_torch.io.checkpoints import (
     params_from_numpy,
     prepare_for_kernels,
@@ -117,6 +121,9 @@ def test_chunked_kernels(device):
 
 
 def test_dispatch_counts_and_refusals(device):
+  """Every wrapper counts its own launches and refuses what its kernel does
+  not take; the int8 kernels also run their twin checks and tiny int8
+  models here (``_int8_kernels_and_dispatch``)."""
   case = cases_lib.attention_case(2, 16, 128, 2, 64, cap=50.0, padded=False,
                                   device=device)
   _lib.reset_launches()
@@ -161,6 +168,7 @@ def test_dispatch_counts_and_refusals(device):
     att.fn(*att.args, **dict(att.kwargs, chunks=3))
   with pytest.raises(ValueError, match='chunks'):
     ffn.fn(*ffn.args, **dict(ffn.kwargs, chunks=64))   # slices of 4
+  _int8_kernels_and_dispatch(device)
 
 
 def _layer_params(device, d, heads, f, seed=0):
@@ -316,3 +324,130 @@ def test_tiny_classifier_kernel_path_matches_reference(device):
   want, _ = vc_lib.apply(params, video, cfg, impl='reference')
   assert got.shape == (2, 10) and bool(torch.isfinite(got).all())
   assert _min_cosine(got, want) >= 0.999
+
+
+def _int8_params(tree, device):
+  return prepare_for_kernels(params_from_numpy(
+      quantization.quantize_for_serving(tree), device=device,
+      dtype=torch.bfloat16))
+
+
+def _int8_kernels_and_dispatch(device):
+  """K9-K12b against their twins at ragged and chunked shapes (rows and T
+  off the tiles, widths of 144, head groups of 48, F-chunks of 144 and 64)
+  and at the int8 paths' shapes (the giant encoder's too); their launch
+  counts and refusals; an int8 layer past the attention core's capacity
+  (K12a + K5 + K12b at H = 64, ValueError at H = 88); a tiny int8 encoder
+  through K11 (F = 256) and through K10 + K9 (F = 192, which
+  the reference's layer kernel refuses) and a tiny int8 CLIP through K12a
+  + K5 + K12b, each against the plain path on the card."""
+  ffn = cases_lib.int8_ffn_case(200, 144, 288, activation='gelu',
+                                padded=True, chunks=2, device=device)
+  _check_all([
+      ffn,
+      cases_lib.int8_ffn_case(200, 144, 256, activation='relu', padded=True,
+                              chunks=4, device=device),
+      cases_lib.int8_attention_case(6, 40, 144, 3, 48, cap=50.0, padded=True,
+                                    chunks=3, device=device),
+      cases_lib.int8_attention_case(5, 100, 128, 2, 64, cap=0.0, padded=True,
+                                    causal=True, chunks=1, device=device),
+      cases_lib.int8_layer_case(3, 24, 128, 4, 32, 256, cap=50.0,
+                                padded=True, chunks=(2, 2), device=device),
+      cases_lib.int8_layer_case(2, 65, 144, 3, 48, 288, cap=0.0, padded=True,
+                                causal=True, chunks=(3, 2), device=device),
+      *cases_lib.int8_projection_cases(200, 144, 128, device=device),
+      *cases_lib.int8_path_cases(device),
+      *cases_lib.int8_giant_cases(device),
+  ])
+
+  _lib.reset_launches()
+  ffn.fn(*ffn.args, **ffn.kwargs)
+  ffn.fn(*ffn.args, **ffn.kwargs, impl='reference')
+  torch.cuda.synchronize()
+  assert dict(_lib.LAUNCHES) == {'int8_ffn_block_chunked': 1}
+  with pytest.raises(ValueError, match='bfloat16'):
+    ffn.fn(ffn.args[0].float(), *ffn.args[1:], **ffn.kwargs)
+  with pytest.raises(ValueError, match='int8'):
+    ffn.fn(*ffn.args[:4], ffn.args[4].bfloat16(), *ffn.args[5:],
+           **ffn.kwargs)
+  with pytest.raises(ValueError, match='multiple of 16'):
+    ffn.fn(*ffn.args, **dict(ffn.kwargs, chunks=36))      # chunks of 8
+
+  # Past the attention core's capacity (T = 800 at H = 64) the reference's
+  # one-group K10 takes K12a + K5 + K12b, the same arithmetic.
+  cfg = transformer_lib.TransformerLayerConfig(
+      num_layers=1, hidden_dim=256, num_heads=2, activation='gelu',
+      enable_per_dim_scale=False, logit_cap=50.0, dtype=torch.bfloat16)
+  params = _int8_params({'layer': init_lib._Init(0, 0.1).layer(128, cfg)},
+                        device)['layer']
+  gen = torch.Generator(device=device).manual_seed(0)
+  x = torch.randn((2, 800, 128), generator=gen, device=device,
+                  dtype=torch.bfloat16)
+  pads = torch.zeros((2, 800), device=device)
+  pads[1, 700:] = 1.0
+  mask = mask_lib.attention_mask_for_fprop(x, pads)
+  _lib.reset_launches()
+  got = transformer_lib.transformer_layer(params, x, pads, mask, cfg)
+  torch.cuda.synchronize()
+  assert dict(_lib.LAUNCHES) == {
+      'int8_qkv_projection': 1, 'fused_attention': 1,
+      'int8_out_projection': 1, 'int8_ffn_block_chunked': 1}
+  want = transformer_lib.transformer_layer(params, x, pads, mask, cfg,
+                                           impl='reference')
+  assert _min_cosine(got, want) >= 0.999
+  # At giant's head dim no int8 route takes a sequence past the core's
+  # capacity (K5 needs H % 16 == 0): the layer raises naming the limit.
+  cfg = dataclasses.replace(cfg, hidden_dim=6144, num_heads=16)
+  params = _int8_params({'layer': init_lib._Init(0, 0.1).layer(1408, cfg)},
+                        device)['layer']
+  t = _lib.max_attention_t(88) + 8
+  x = torch.randn((1, t, 1408), generator=gen, device=device,
+                  dtype=torch.bfloat16)
+  pads = torch.zeros((1, t), device=device)
+  with pytest.raises(ValueError, match=f'T <= {t - 8}'):
+    transformer_lib.transformer_layer(
+        params, x, pads, mask_lib.attention_mask_for_fprop(x, pads), cfg)
+
+  video = torch.randn((2, 4, 24, 24, 3), generator=gen, device=device)
+  for f, want_launches in (
+      (256, {'int8_layer_block': 4}),
+      (192, {'int8_attention_block_chunked': 4,
+             'int8_ffn_block_chunked': 4})):
+    cfg = fe.FactorizedEncoderConfig(
+        patch_size=6, pos_emb_shape=(4, 4, 4), model_dim=128,
+        num_spatial_layers=2, num_temporal_layers=2, num_heads=2, mlp_dim=f,
+        atten_logit_cap=50.0, dtype=torch.bfloat16)
+    params = _int8_params(init_lib.numpy_factorized_encoder(
+        0, cfg, norm_bias_std=0.1), device)
+    _lib.reset_launches()
+    got, _ = fe.apply(params, video, cfg)
+    torch.cuda.synchronize()
+    assert dict(_lib.LAUNCHES) == dict(
+        want_launches, spatial_to_temporal=1, temporal_to_output=1)
+    want, _ = fe.apply(params, video, cfg, impl='reference')
+    assert got.shape == (2, 64, 128) and bool(torch.isfinite(got).all())
+    assert _min_cosine(got, want) >= 0.999
+
+  cfg = clip_lib.VideoCLIPConfig(
+      patch_size=6, pos_emb_shape=(8, 12, 12), num_spatial_layers=1,
+      num_temporal_layers=1, mlp_dim=256, num_auxiliary_layers=2,
+      vocabulary_size=128, num_unimodal_layers=2, model_dim=128, num_heads=2,
+      atten_logit_cap=50.0, dtype=torch.bfloat16)
+  params = _int8_params(init_lib.numpy_video_clip(0, cfg, norm_bias_std=0.1),
+                        device)
+  video = torch.randn((2, 8, 72, 72, 3), generator=gen, device=device)
+  ids = torch.randint(0, 128, (2, 16), generator=gen, device=device)
+  pads = (torch.arange(16, device=device)
+          >= torch.tensor([[16], [5]], device=device)).float()
+  _lib.reset_launches()
+  got = clip_lib.apply(params, video, ids, pads, cfg)
+  torch.cuda.synchronize()
+  assert dict(_lib.LAUNCHES) == {
+      'int8_layer_block': 4, 'int8_qkv_projection': 2, 'fused_attention': 2,
+      'int8_out_projection': 2, 'int8_ffn_block_chunked': 2,
+      'spatial_to_temporal': 1, 'temporal_to_output': 1,
+      'fused_layer_norm_2d': 2}
+  want = clip_lib.apply(params, video, ids, pads, cfg, impl='reference')
+  for g, w in zip(got[:2], want[:2]):
+    assert g.shape == (2, 128) and bool(torch.isfinite(g).all())
+    assert _min_cosine(g, w) >= 0.999

@@ -1,6 +1,7 @@
 """videoprism_tpu_torch's param tree, weight bridge, registry and golden
 fixture against the JAX package, on the CPU."""
 
+import inspect
 import json
 import os
 import subprocess
@@ -126,7 +127,7 @@ def test_prepare_for_kernels_fuses_projections():
       'x_layers']['self_attention']
 
 
-def test_registry_surface():
+def test_registry_surface(tmp_path, monkeypatch):
   assert vpt.has_model('videoprism_public_v1_base')
   assert vpt.has_model('google/videoprism-large-f8r288')
   model = vpt.get_model('google/videoprism-base-f16r288',
@@ -158,6 +159,40 @@ def test_registry_surface():
   assert vc.config.num_classes == 400 and vc.config.encoder.model_dim == 1024
   with pytest.raises(ValueError, match='not found'):
     vpt.get_model('videoprism_public_v9')
+  # load_model / load_video_encoder: the JAX signatures (the port adds only
+  # the device) and the JAX refusals, given an npz so that no download is
+  # tried: a non-lvt name to load_model, an lvt name to
+  # load_video_encoder, an unknown quantize mode.
+  for name in ('load_model', 'load_video_encoder'):
+    want = inspect.signature(getattr(jreg, name)).parameters
+    got = inspect.signature(getattr(vpt, name)).parameters
+    assert list(got)[:len(want)] == list(want) and list(got)[len(want):] == [
+        'device'], (name, list(got))
+    for key, param in want.items():
+      assert (got[key].kind, got[key].default) == (param.kind,
+                                                   param.default), key
+  path = str(tmp_path / 'ckpt.npz')
+  jckpt.save_checkpoint(path, tinit.numpy_factorized_encoder(0, TINY))
+  for call, match in (
+      (lambda m: m.load_model('videoprism_public_v1_base', path),
+       'not a video-text'),
+      (lambda m: m.load_video_encoder('videoprism_lvt_public_v1_base', path),
+       'is a video-text model'),
+      (lambda m: m.load_video_encoder('videoprism_public_v1_base', path,
+                                      quantize='int4'),
+       "unknown quantize mode 'int4'")):
+    for module in (jreg, treg):
+      with pytest.raises(ValueError, match=match):
+        call(module)
+  # The port has no download: a missing file names the paths tried, and
+  # the files the JAX package reads besides npz are not ported yet.
+  monkeypatch.chdir(tmp_path)
+  with pytest.raises(FileNotFoundError, match=r'weights/videoprism_public_v1'
+                     r'_base\.npz'):
+    treg.load_video_encoder('videoprism_public_v1_base', device='cpu')
+  for bad in ('ckpt.safetensors', 'ckpt_mlx.npz'):
+    with pytest.raises(ValueError, match='item 1'):
+      treg.load_video_encoder('videoprism_public_v1_base', bad, device='cpu')
 
 
 def test_entry_points_default_to_the_card(tmp_path):
@@ -171,6 +206,8 @@ def test_entry_points_default_to_the_card(tmp_path):
       lambda: tinit.init_factorized_encoder(0, TINY),
       lambda: treg.Model(TINY).init(0),
       lambda: treg.load_pretrained_weights(None, checkpoint_path=path),
+      lambda: treg.load_video_encoder('videoprism_public_v1_base', path,
+                                      quantize='int8').params,
   )
   for call in calls:
     if torch.cuda.is_available():
@@ -215,3 +252,80 @@ def test_golden_fixture_regenerates_and_port_matches():
   got, _ = tfe.apply(params, torch.from_numpy(video), cfg)
   np.testing.assert_allclose(got.numpy(), stored['output'], atol=2e-5, rtol=0)
   assert os.path.getsize(GOLDEN) < 200_000
+
+
+def test_load_int8_matches_jax(tmp_path, monkeypatch):
+  """load_video_encoder and load_model with quantize='int8' from a seeded
+  fp32 npz against the JAX functions of the same name, on tiny configs put
+  in both registries under the base names: the JAX int8 kernels in
+  interpret mode against the port's twins (the encoder in fp32 and bf16,
+  the lvt model in fp32; tolerances of tests/test_torch_int8.py: fp32
+  tokens 90 % within 1e-5, every cosine >= 0.9999, bf16 >= 0.999), and
+  attention_impl='xla' warning on both sides and giving the dequantized
+  float path (fp32 atol 2e-5, the port's model gate)."""
+  import jax.numpy as jnp
+
+  sys.path.insert(0, os.path.join(_ROOT, 'scripts'))
+  import make_torch_int8_golden as int8_golden
+
+  tiny = lambda cfg: dict(cfg, pos_emb_shape=tuple(cfg['pos_emb_shape']))
+  enc_cfg, clip_cfg = (tiny(int8_golden.ENCODER_CONFIG),
+                       tiny(int8_golden.CLIP_CONFIG))
+  clip_cfg.pop('vocabulary_size')
+  for reg in (jreg, treg):
+    monkeypatch.setitem(reg.CONFIGS, 'videoprism_v1_base', enc_cfg)
+    monkeypatch.setitem(reg.CONFIGS, 'videoprism_lvt_v1_base', clip_cfg)
+  video, ids, pads, enc_video, *_ = int8_golden.make_inputs()
+
+  def cosines(got, want):
+    got, want = got.reshape(-1, got.shape[-1]), want.reshape(-1,
+                                                            want.shape[-1])
+    return np.sum(got * want, -1) / (np.linalg.norm(got, axis=-1)
+                                     * np.linalg.norm(want, axis=-1))
+
+  def run(name, inputs, dtype=None, **kw):
+    """(port, JAX) outputs of the loader ``name`` on a seeded npz."""
+    jax_dtype = {torch.bfloat16: jnp.bfloat16}.get(dtype)
+    bound = getattr(jreg, name)(model_key, path, fprop_dtype=jax_dtype, **kw)
+    jax_out = jreg.BoundModel(
+        bound.model.replace_config(kernel_interpret=True), bound.params)(
+            *map(jnp.asarray, inputs))
+    port_out = getattr(treg, name)(model_key, path, fprop_dtype=dtype,
+                                   device='cpu', **kw)(
+                                       *map(torch.from_numpy, inputs))
+    pick = lambda out: [o for o in out if o is not None and not isinstance(
+        o, dict)]
+    return ([o.float().numpy() for o in pick(port_out)],
+            [np.asarray(jnp.asarray(o, jnp.float32)) for o in pick(jax_out)])
+
+  model_key = 'videoprism_public_v1_base'
+  path = str(tmp_path / 'encoder.npz')
+  tckpt.save_checkpoint(path, tinit.numpy_factorized_encoder(
+      0, tfe.FactorizedEncoderConfig(**enc_cfg), norm_bias_std=0.1))
+  for dtype in (None, torch.bfloat16):
+    (got,), (want,) = run('load_video_encoder', (enc_video,), dtype,
+                          quantize='int8')
+    if dtype is None:
+      assert (np.abs(got - want) <= 1e-5).mean() >= 0.9
+      assert cosines(got, want).min() >= 0.9999
+    else:
+      assert cosines(got, want).min() >= 0.999
+  for module in (jreg, treg):
+    with pytest.warns(UserWarning, match="attention_impl='flash'"):
+      module.load_video_encoder(model_key, path, quantize='int8',
+                                attention_impl='xla',
+                                **({'device': 'cpu'} if module is treg
+                                   else {}))
+  with pytest.warns(UserWarning):
+    (got,), (want,) = run('load_video_encoder', (enc_video,),
+                          quantize='int8', attention_impl='xla')
+  np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
+
+  model_key = 'videoprism_lvt_public_v1_base'
+  path = str(tmp_path / 'lvt.npz')
+  tckpt.save_checkpoint(path, tinit.numpy_video_clip(
+      0, treg.get_model(model_key).config, norm_bias_std=0.1))
+  got, want = run('load_model', (video, ids, pads), quantize='int8')
+  assert len(got) == len(want) == 2
+  for g, w in zip(got, want):
+    assert cosines(g, w).min() >= 0.9999

@@ -16,7 +16,11 @@ from typing import Any
 import numpy as np
 import torch
 
-from videoprism_tpu_torch.ops.transformer import fused_attention_weights
+from videoprism_tpu_torch import quantization
+from videoprism_tpu_torch.ops.transformer import (
+    fused_attention_weights,
+    int8_attention_weights,
+)
 
 
 def recover_tree(keys, values) -> dict:
@@ -46,54 +50,89 @@ def load_checkpoint(source: str | Mapping[str, np.ndarray]) -> dict:
   return recover_tree(keys, values)
 
 
-def _tree_map(fn, tree):
+def save_checkpoint(path: str, tree) -> None:
+  """Saves a nested tree of arrays as a flat-key (``a/b/c``) npz file, as
+  the JAX package's ``save_checkpoint`` writes one (safetensors is not
+  ported: ROADMAP.md, queue 1 item 1)."""
+  if not path.endswith('.npz'):
+    raise ValueError(f'only .npz checkpoints are written here, got {path!r}')
+  flat = {}
+
+  def walk(sub, prefix):
+    for k, v in sub.items():
+      if isinstance(v, Mapping):
+        walk(v, f'{prefix}{k}/')
+      else:
+        flat[prefix + k] = np.ascontiguousarray(np.asarray(v))
+
+  walk(tree, '')
+  np.savez(path, **flat)
+
+
+def _tree_map(fn, tree, key=None):
+  """fn(leaf, key) over a nested tree; ``key`` is the leaf's own name."""
   if isinstance(tree, Mapping):
-    return {k: _tree_map(fn, v) for k, v in tree.items()}
-  return fn(tree)
+    return {k: _tree_map(fn, v, k) for k, v in tree.items()}
+  return fn(tree, key)
 
 
 def params_from_numpy(tree, *, device: torch.device | str = 'cuda',
                       dtype: torch.dtype = torch.float32) -> dict:
   """Nested tree of numpy arrays -> the same tree of tensors on ``device``.
 
-  Floating leaves become ``dtype``; others keep their type.  bfloat16
-  arrays (``ml_dtypes``, as JAX hands them out) go through float32.  The
-  default device is the card; without one it raises (pass
-  ``device='cpu'`` to run on the CPU).
+  Floating leaves become ``dtype``, except the fp32 weight scales of a
+  quantized tree (``w_scale``, ``kernel_scale``); int8 weights and other
+  non-floating leaves keep their type.  bfloat16 arrays (``ml_dtypes``, as
+  JAX hands them out) go through float32.  The default device is the card;
+  without one it raises (pass ``device='cpu'`` to run on the CPU).
   """
   device = torch.device(device)
   if device.type == 'cuda' and not torch.cuda.is_available():
     raise RuntimeError(
         "no CUDA device is available; pass device='cpu' to load on the CPU")
 
-  def convert(leaf):
+  def convert(leaf, key):
     arr = np.asarray(leaf)
     if arr.dtype.name == 'bfloat16':
       arr = arr.astype(np.float32)
     t = torch.from_numpy(np.ascontiguousarray(arr))
-    return t.to(device=device,
-                dtype=dtype if t.is_floating_point() else t.dtype)
+    want = (torch.float32 if key in quantization.SCALE_KEYS
+            else dtype if t.is_floating_point() else t.dtype)
+    return t.to(device=device, dtype=want)
 
   return _tree_map(convert, tree)
 
 
+def _has_int8(tree) -> bool:
+  if isinstance(tree, Mapping):
+    return any(_has_int8(v) for v in tree.values())
+  return quantization.is_int8(tree)
+
+
 def prepare_for_kernels(params: dict[str, Any]) -> dict[str, Any]:
   """Adds ``fused`` = {wqkv [.., D, 3NH], bqkv [.., 3NH], wo [.., NH, D]}
-  beside every ``self_attention`` tree's (D, N, H) weights, in their dtype.
+  beside every float ``self_attention`` tree's (D, N, H) weights, in their
+  dtype, and ``fused`` = {wo int8 [.., NH, D]} beside every int8 one (its
+  q/k/v weights are used as [D, NH] views).
 
-  Done once at load time, so the attention block (K1, and K8a, which reads
-  a head group as a column block of Wqkv and a row block of Wo) does not
-  concatenate and transpose its projection weights on every forward.  The CLIP
-  model's ``auxiliary_encoder`` is left as it is: its 4096-token attention
-  runs the composed path (K5), which takes the (D, N, H) weights.  Returns
-  a new tree; the other leaves are shared.
+  Done once at load time, so the attention blocks (K1, and K8a, which reads
+  a head group as a column block of Wqkv and a row block of Wo; K10, K11
+  and K12b) do not concatenate and transpose their projection weights on
+  every forward.  A float CLIP model's ``auxiliary_encoder`` is left as it
+  is: its 4096-token attention runs the composed path (K5), which takes the
+  (D, N, H) weights; an int8 one runs K12a + K5 + K12b and gets the int8
+  layout.  Returns a new tree; the other leaves are shared.
   """
   out = {}
   for key, value in params.items():
     if key == 'self_attention' and 'query' in value:
-      value = dict(value, fused=fused_attention_weights(
-          value, value['query']['w'].dtype))
-    elif isinstance(value, Mapping) and key != 'auxiliary_encoder':
+      if quantization.is_quantized({'self_attention': value}):
+        value = dict(value, fused=int8_attention_weights(value))
+      else:
+        value = dict(value, fused=fused_attention_weights(
+            value, value['query']['w'].dtype))
+    elif isinstance(value, Mapping) and (key != 'auxiliary_encoder'
+                                         or _has_int8(value)):
       value = prepare_for_kernels(value)
     out[key] = value
   return out

@@ -20,11 +20,14 @@ takes the JAX package's calling convention, with a bare param tree or a
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from collections.abc import Callable, Mapping
+from pathlib import Path
 from typing import Any
 
 import torch
 
+from videoprism_tpu_torch import quantization
 from videoprism_tpu_torch.io import checkpoints as ckpt_lib
 from videoprism_tpu_torch.models import classifier as classifier_lib
 from videoprism_tpu_torch.models import clip as clip_lib
@@ -286,6 +289,125 @@ def load_pretrained_weights(model_name: str | None,
         'npz and pass checkpoint_path=')
   return ckpt_lib.params_from_numpy(ckpt_lib.load_checkpoint(checkpoint_path),
                                     device=device, dtype=dtype)
+
+
+def _resolve_weights(model_name: str, weights_path: str | None) -> dict:
+  """The checkpoint as a numpy tree: ``weights_path`` if given, else the
+  first of the local ``weights/`` files the JAX package looks for.
+
+  There is no download (it needs the network): a missing file raises
+  naming the paths tried.  safetensors files and the reference's MLX
+  converter's ``*_mlx`` files are not ported yet (ROADMAP.md, queue 1
+  item 1) and raise ``ValueError``.
+  """
+
+  def load(path: str) -> dict:
+    name = Path(path).name
+    if '_mlx' in name or name.endswith('.safetensors'):
+      raise ValueError(
+          f'{path}: safetensors and *_mlx checkpoints are not ported yet '
+          '(ROADMAP.md, queue 1 item 1); pass an npz checkpoint')
+    return ckpt_lib.load_checkpoint(path)
+
+  if weights_path is not None:
+    return load(weights_path)
+  candidates = [Path('weights') / f'{model_name}{suffix}' for suffix in (
+      '.safetensors', '.npz', '_mlx.safetensors', '_mlx.npz')]
+  for candidate in candidates:
+    if candidate.exists():
+      return load(str(candidate))
+  raise FileNotFoundError(
+      f'no weights for {model_name!r}: tried '
+      f'{", ".join(str(c) for c in candidates)}; downloading from '
+      f'HuggingFace ({CHECKPOINTS.get(model_name, "unknown repository")}) '
+      'needs the network: fetch the npz and pass weights_path=')
+
+
+def _maybe_quantize(params: dict, quantize: str | None) -> dict:
+  if quantize is None:
+    return params
+  if quantize != 'int8':
+    raise ValueError(f'unknown quantize mode {quantize!r}')
+  return quantization.quantize_for_serving(params)
+
+
+def _quantize_attention_impl(attention_impl: str | None,
+                             quantize: str | None) -> str | None:
+  """int8 runs through its kernels only on the 'flash' path: default to
+  it when quantizing, and warn if 'xla' was asked for."""
+  if quantize != 'int8':
+    return attention_impl
+  if attention_impl is None:
+    return 'flash'
+  if attention_impl == 'xla':
+    warnings.warn(
+        "quantize='int8' with attention_impl='xla' dequantizes the weights "
+        '(int8 buys nothing then); use '
+        "attention_impl='flash' to engage the int8 kernels.",
+        stacklevel=3)
+  return attention_impl
+
+
+def _bind(model: Model, model_name: str, weights_path: str | None,
+          attention_impl: str | None, quantize: str | None,
+          device: torch.device | str) -> BoundModel:
+  """The weights loaded, quantized, on ``device`` in the model's dtype
+  (int8 weights and their fp32 scales kept) and laid out for the kernels.
+
+  The port has one float route, so ``attention_impl`` tells only an int8
+  tree's: None or 'flash' takes the int8 kernels; 'xla' dequantizes the
+  weights, as the reference's int8 route needs 'flash'.
+  """
+  if attention_impl not in (None, 'flash', 'xla'):
+    raise ValueError(
+        f"attention_impl must be None, 'flash' or 'xla', got "
+        f'{attention_impl!r}')
+  tree = _maybe_quantize(_resolve_weights(model_name, weights_path), quantize)
+  params = ckpt_lib.params_from_numpy(tree, device=device,
+                                      dtype=model.config.dtype)
+  if attention_impl == 'xla':
+    params = quantization.dequantize(params, model.config.dtype)
+  return BoundModel(model, ckpt_lib.prepare_for_kernels(params))
+
+
+def load_model(model_name: str, weights_path: str | None = None, *,
+               fprop_dtype: torch.dtype | None = None,
+               attention_impl: str | None = None,
+               quantize: str | None = None,
+               device: torch.device | str = 'cuda') -> BoundModel:
+  """A pretrained video-text (lvt) CLIP model with its weights bound, on
+  ``device`` (the card unless asked otherwise; raises without one).
+
+  The JAX package's signature and refusals: ``fprop_dtype`` sets the
+  activation dtype, ``quantize='int8'`` converts the transformer matmul
+  weights for the W8A8 kernels (``quantization``), ``attention_impl`` as
+  in :func:`_bind`.  The weights come from ``weights_path`` or the local
+  ``weights/`` directory (npz only).
+  """
+  if 'lvt' not in model_name:
+    raise ValueError(
+        f'`{model_name}` is not a video-text (lvt) model; use '
+        'load_video_encoder() for vision-only backbones.')
+  attention_impl = _quantize_attention_impl(attention_impl, quantize)
+  model = get_model(model_name, fprop_dtype=fprop_dtype)
+  return _bind(model, model_name, weights_path, attention_impl, quantize,
+               device)
+
+
+def load_video_encoder(model_name: str, weights_path: str | None = None, *,
+                       fprop_dtype: torch.dtype | None = None,
+                       attention_impl: str | None = None,
+                       quantize: str | None = None,
+                       device: torch.device | str = 'cuda') -> BoundModel:
+  """A pretrained vision-only backbone with its weights bound; see
+  :func:`load_model`."""
+  if 'lvt' in model_name:
+    raise ValueError(
+        f'`{model_name}` is a video-text model; use load_model() instead.')
+  attention_impl = _quantize_attention_impl(attention_impl, quantize)
+  model = get_model(model_name, fprop_dtype=fprop_dtype)
+  return _bind(model, model_name, weights_path, attention_impl, quantize,
+               device)
 
 
 def _flat_keys(tree, prefix: str = '') -> set[str]:

@@ -40,6 +40,9 @@ IMPLS = ('auto', 'kernel', 'reference')
 # Launches per kernel wrapper: each wrapper adds one where it launches its
 # kernel chain and nowhere else.
 LAUNCHES: collections.Counter = collections.Counter()
+# The same launches of the int8 chunked blocks (K9, K10) by chunk count:
+# (wrapper, chunks) -> launches.
+CHUNK_LAUNCHES: collections.Counter = collections.Counter()
 
 # Argument codes of the C entry points: p pointer (or the stream), i int,
 # f float.  The stream is appended by launch().
@@ -50,12 +53,18 @@ _SIGNATURES = {
     'vp_temporal_to_output': 'pppp' 'iiii' 'f' 'p',
     'vp_layer_norm': 'pppp' 'iii' 'f' 'p',
     'vp_flash_attention': 'ppppp' 'iiiiiii' 'f' 'p',
+    'vp_int8_ffn_block': 'p' * 17 + 'iiiii' 'f' 'p',
+    'vp_int8_attention_block': 'p' * 24 + 'i' * 8 + 'fff' 'p',
+    'vp_int8_layer_block': 'p' * 37 + 'i' * 11 + 'fff' 'p',
+    'vp_int8_qkv_projection': 'p' * 15 + 'iii' 'ff' 'p',
+    'vp_int8_out_projection': 'p' * 8 + 'iii' 'p',
 }
 _CTYPES = {'p': ctypes.c_void_p, 'i': ctypes.c_int, 'f': ctypes.c_float}
 
 
 def reset_launches() -> None:
   LAUNCHES.clear()
+  CHUNK_LAUNCHES.clear()
 
 
 def use_kernel(impl: str, x: torch.Tensor) -> bool:
@@ -77,11 +86,15 @@ def check(cond: bool, msg: str) -> None:
     raise ValueError(msg)
 
 
-def check_tensors(device: torch.device, **tensors: torch.Tensor) -> None:
+def check_tensors(device: torch.device, *, int8: tuple[str, ...] = (),
+                  fp32: tuple[str, ...] = ('mask',),
+                  **tensors: torch.Tensor) -> None:
   """Every kernel operand: on ``device``, contiguous, 16-byte aligned, and
-  bf16 (masks: fp32)."""
+  bf16, or int8 / fp32 for the operands named in ``int8`` / ``fp32``
+  (masks: fp32)."""
   for name, t in tensors.items():
-    want = torch.float32 if name == 'mask' else torch.bfloat16
+    want = (torch.int8 if name in int8 else
+            torch.float32 if name in fp32 else torch.bfloat16)
     check(t.device == device, f'{name} is on {t.device}, expected {device}')
     check(t.dtype == want,
           f'{name} is {t.dtype}; the kernel takes {want} (fp32 activations '

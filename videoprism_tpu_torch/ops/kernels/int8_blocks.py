@@ -1,0 +1,627 @@
+"""K9, K10, K11, K12a and K12b: the int8 (W8A8) serving blocks.
+
+Ports ``videoprism_tpu/ops/pallas/int8_blocks.py``:
+``int8_ffn_block_chunked`` (K9), ``int8_attention_block_chunked`` (K10),
+``int8_layer_block`` (K11), ``int8_qkv_projection`` (K12a),
+``int8_out_projection`` (K12b) and ``int8_projected_flash_attention``
+(K12a, then K5, then K12b).  On a CUDA tensor each wrapper runs its chain
+of hand-written kernels (``csrc/int8_blocks.cu``); on a CPU tensor, or with
+``impl='reference'``, the plain PyTorch twin beside it, which computes the
+JAX kernel body step by step:
+
+  quant_rows(h): s = max|h| * (1/127), s = max(s, 1e-12),
+      q = clip(round_half_even(h * (1/s)), -127, 127) as int8.
+  Products int8 x int8 exactly (float64 here, int32 on the card), then
+      (float(acc) * row_scale) * col_scale in fp32.
+  K12a: h8 = quant_rows(LN(x) in fp32); q = ((h8 @ Wq) + bq) * query_scale,
+      k, v likewise without the scale, each cast to the activation dtype.
+  K10: K12a's q, k, v; the capped-softmax core of K1 -> ctx in the
+      activation dtype; per head group c: quant_rows(ctx_c in fp32) @ Wo_c,
+      + bo + x in group 0, + the previous output after, cast after each.
+  K12b: quant_rows(ctx) @ Wo + bo + resid, cast.
+  K9: h8 = quant_rows(LN(x)); per F-chunk c: a = act((h8 @ W1_c) + b1_c) *
+      keep in fp32, quant_rows(a) @ W2_c, + b2 in chunk 0, * keep, + the
+      previous output (x in chunk 0), cast after each.
+  K11: K10's attention half and K9's FFN half, but each half sums its
+      chunks' products in fp32 and casts once:
+      x1 = cast((sum_c part_c + bo) + x),
+      out = cast(((sum_c part_c + b2) * keep) + x1).
+
+The chunk counts are part of the arithmetic (the scale of ctx and of the
+hidden activation is taken over a chunk's columns, and chained blocks cast
+after every chunk), so the reference's rule for them is copied below.
+GELU is the exact erf form (the TPU's bf16 kernels use a polynomial).  The
+kernels take bf16 activations and raise on fp32 CUDA tensors; fp32 on the
+card runs with ``impl='reference'``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from videoprism_tpu_torch.ops.kernels import _lib
+from videoprism_tpu_torch.ops.kernels import flash_attention as flash
+from videoprism_tpu_torch.ops.kernels.transformer_block import (
+    ACTIVATIONS,
+    attention_core,
+    check_partial_out,
+    ln_f32,
+)
+
+_INT8 = ('w1', 'w2', 'wq', 'wk', 'wv', 'wo')
+_FP32 = ('mask', 's1', 's2', 'sq', 'sk', 'sv', 'so')
+
+
+def quant_rows(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+  """Symmetric per-row int8 quantization of fp32 rows -> (q int8, scale
+  fp32 [..., 1]).  All-zero rows get the clamped scale and quantize to 0."""
+  s = h.abs().amax(-1, keepdim=True) * (1.0 / 127.0)
+  s = torch.clamp_min(s, 1e-12)
+  q = torch.clamp(torch.round(h * (1.0 / s)), -127.0, 127.0)
+  return q.to(torch.int8), s
+
+
+def _i8_matmul(a8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+  """The exact int8 product as fp32: float64 holds every int32 sum
+  (|acc| <= 127^2 * K) exactly, and the one cast to fp32 rounds it to
+  nearest even as the card's int32 -> fp32 conversion does."""
+  return (a8.double() @ w8.double()).float()
+
+
+def _activate(a: torch.Tensor, activation: str) -> torch.Tensor:
+  return F.gelu(a) if activation == 'gelu' else torch.relu(a)
+
+
+def _check_activation(activation: str) -> None:
+  if activation not in ACTIVATIONS:
+    raise ValueError(f'activation must be gelu or relu, got {activation!r}')
+
+
+# ---------------------------------------------------------------------------
+# Plain twins.
+# ---------------------------------------------------------------------------
+
+
+def _reference_qkv(x, ln_scale, ln_bias, wq, sq, bq, wk, sk, bk, wv, sv, bv,
+                   *, epsilon, query_scale):
+  """K12a's twin on x [..., D] -> q, k, v [..., N*H] in x's dtype."""
+  h8, hs = quant_rows(ln_f32(x, ln_scale, ln_bias, epsilon))
+  proj = lambda w, s, b: _i8_matmul(h8, w) * hs * s.float() + b.float()
+  q = (proj(wq, sq, bq) * query_scale).to(x.dtype)
+  return q, proj(wk, sk, bk).to(x.dtype), proj(wv, sv, bv).to(x.dtype)
+
+
+def _parts(a, w, ws, chunks):
+  """The fp32 products of the last matmul over ``chunks`` K-slices, each
+  slice of ``a`` quantized over its own columns."""
+  kc = a.shape[-1] // chunks
+  for c in range(chunks):
+    a8, as_ = quant_rows(a[..., c * kc:(c + 1) * kc].float())
+    yield _i8_matmul(a8, w[c * kc:(c + 1) * kc]) * as_ * ws.float()
+
+
+def _chain(parts, bias, x, keep=None):
+  """K9/K10/K12b: bias in the first part, times keep, plus the residual (x,
+  then the previous output), cast to x's dtype after each part."""
+  out = x
+  for c, part in enumerate(parts):
+    if c == 0:
+      part = part + bias.float()
+    if keep is not None:
+      part = part * keep
+    out = (part + out.float()).to(x.dtype)
+  return out
+
+
+def _sum(parts, bias, x, keep=None):
+  """K11: the parts summed in fp32, + bias, times keep, + x, one cast."""
+  acc = None
+  for part in parts:
+    acc = part if acc is None else acc + part
+  acc = acc + bias.float()
+  if keep is not None:
+    acc = acc * keep
+  return (acc + x.float()).to(x.dtype)
+
+
+def _reference_ctx(x, mask, ln_scale, ln_bias, wq, sq, bq, wk, sk, bk, wv, sv,
+                   bv, *, num_heads, dim_per_head, logit_cap, epsilon,
+                   query_scale):
+  """K12a's q, k, v and K1's attention core -> ctx [B, T, N*H] in x's
+  dtype."""
+  b, t, _ = x.shape
+  q, k, v = _reference_qkv(x, ln_scale, ln_bias, wq, sq, bq, wk, sk, bk, wv,
+                           sv, bv, epsilon=epsilon, query_scale=query_scale)
+  heads = lambda a: a.reshape(b, t, num_heads, dim_per_head).transpose(1, 2)
+  ctx = attention_core(heads(q), heads(k), heads(v), mask,
+                       logit_cap=logit_cap, dtype=x.dtype)
+  return ctx.transpose(1, 2).reshape(b, t, num_heads * dim_per_head)
+
+
+def _reference_hidden_parts(x, keep, ln_scale, ln_bias, w1, s1, b1, w2, s2, *,
+                            chunks, activation, epsilon):
+  """K9's and K11's FFN products per F-chunk, in fp32."""
+  h8, hs = quant_rows(ln_f32(x, ln_scale, ln_bias, epsilon))
+  fc = w1.shape[1] // chunks
+  for c in range(chunks):
+    sl = slice(c * fc, (c + 1) * fc)
+    a = _i8_matmul(h8, w1[:, sl]) * hs * s1[sl].float()
+    a = _activate(a + b1[sl].float(), activation) * keep
+    yield from _parts(a, w2[sl], s2, 1)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers.
+# ---------------------------------------------------------------------------
+
+
+def _check_multiple(**dims: int) -> None:
+  for name, value in dims.items():
+    _lib.check(value > 0 and value % 16 == 0,
+               f'{name}={value} must be a positive multiple of 16 (int8 rows '
+               'of 16 bytes)')
+
+
+def int8_ffn_block_chunked(
+    x: torch.Tensor, paddings: torch.Tensor,   # [rows, D], [rows, 1]
+    ln_scale: torch.Tensor, ln_bias: torch.Tensor,       # [D]
+    # int8 [D, F], fp32 [F], [F]
+    w1: torch.Tensor, s1: torch.Tensor, b1: torch.Tensor,
+    # int8 [F, D], fp32 [D], [D]
+    w2: torch.Tensor, s2: torch.Tensor, b2: torch.Tensor,
+    *,
+    chunks: int,
+    activation: str = 'gelu',
+    epsilon: float = 1e-6,
+    partial_out: bool = False,
+    impl: str = 'auto',
+) -> torch.Tensor:
+  """K9: ``x + keep * FFN(LN(x))`` in W8A8 over ``chunks`` F-chunks, cast
+  after each -> [rows, D]."""
+  check_partial_out(partial_out)
+  _check_activation(activation)
+  rows, d = x.shape
+  f = w1.shape[1]
+  if chunks < 1 or f % chunks:
+    raise ValueError(f'{chunks} chunks do not divide F={f}')
+  if not _lib.use_kernel(impl, x):
+    keep = 1.0 - paddings.float()
+    parts = _reference_hidden_parts(x, keep, ln_scale, ln_bias, w1, s1, b1,
+                                    w2, s2, chunks=chunks,
+                                    activation=activation, epsilon=epsilon)
+    return _chain(parts, b2, x, keep)
+  _lib.check_tensors(x.device, int8=_INT8, fp32=_FP32, x=x, paddings=paddings,
+                     ln_scale=ln_scale, ln_bias=ln_bias, w1=w1, s1=s1, b1=b1,
+                     w2=w2, s2=s2, b2=b2)
+  _lib.check(paddings.shape == (rows, 1) and ln_scale.shape == (d,)
+             and ln_bias.shape == (d,) and w1.shape == (d, f)
+             and s1.shape == (f,) and b1.shape == (f,) and w2.shape == (f, d)
+             and s2.shape == (d,) and b2.shape == (d,),
+             'FFN operand shapes do not match x')
+  _check_multiple(D=d, F=f, F_chunk=f // chunks)
+  dev = x.device
+  i8 = lambda *s: torch.empty(s, dtype=torch.int8, device=dev)
+  f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
+  out = torch.empty_like(x)
+  _lib.launch('vp_int8_ffn_block', dev, x, paddings, ln_scale, ln_bias, w1, s1,
+              b1, w2, s2, b2, i8(rows, d), f32(rows), f32(rows, f),
+              i8(rows, f), f32(rows, chunks),
+              torch.empty_like(x) if chunks > 1 else None, out, rows, d, f,
+              chunks, ACTIVATIONS[activation], epsilon)
+  _lib.LAUNCHES['int8_ffn_block_chunked'] += 1
+  _lib.CHUNK_LAUNCHES['int8_ffn_block_chunked', chunks] += 1
+  return out
+
+
+def _check_attention(x, mask, ln_scale, ln_bias, wq, sq, bq, wk, sk, bk, wv,
+                     sv, bv, wo, so, bo, num_heads, dim_per_head, chunks):
+  b, t, d = x.shape
+  nh = num_heads * dim_per_head
+  _lib.check_tensors(x.device, int8=_INT8, fp32=_FP32, x=x, mask=mask,
+                     ln_scale=ln_scale, ln_bias=ln_bias, wq=wq, sq=sq, bq=bq,
+                     wk=wk, sk=sk, bk=bk, wv=wv, sv=sv, bv=bv, wo=wo, so=so,
+                     bo=bo)
+  _lib.check(mask.ndim == 3 and mask.shape[0] in (1, b)
+             and mask.shape[1] in (1, t) and mask.shape[2] == t,
+             f'mask {tuple(mask.shape)} does not fit x {tuple(x.shape)}')
+  _lib.check(ln_scale.shape == (d,) and ln_bias.shape == (d,)
+             and all(w.shape == (d, nh) for w in (wq, wk, wv))
+             and all(v.shape == (nh,) for v in (sq, bq, sk, bk, sv, bv))
+             and wo.shape == (nh, d) and so.shape == (d,) and bo.shape == (d,),
+             'attention weight shapes do not match x and the head geometry')
+  _check_multiple(D=d, NH=nh, head_group=nh // chunks)
+  _lib.check(dim_per_head % 8 == 0,
+             f'dim_per_head {dim_per_head} must be a multiple of 8')
+  _lib.check(_lib.attention_fits(t, dim_per_head),
+             f"T={t}, H={dim_per_head} exceed the attention kernel's shared "
+             f'memory (it holds T <= {_lib.max_attention_t(dim_per_head)} at '
+             f'H={dim_per_head})')
+
+
+def int8_attention_block_chunked(
+    x: torch.Tensor,          # [B, T, D]
+    mask: torch.Tensor,       # [B|1, T|1, T] additive fp32
+    ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+    # int8 [D, N*H], fp32 [N*H], [N*H]
+    wq: torch.Tensor, sq: torch.Tensor, bq: torch.Tensor,
+    wk: torch.Tensor, sk: torch.Tensor, bk: torch.Tensor,
+    wv: torch.Tensor, sv: torch.Tensor, bv: torch.Tensor,
+    # int8 [N*H, D], fp32 [D], [D]
+    wo: torch.Tensor, so: torch.Tensor, bo: torch.Tensor,
+    *,
+    num_heads: int,
+    dim_per_head: int,
+    chunks: int,
+    logit_cap: float = 0.0,
+    epsilon: float = 1e-6,
+    query_scale: float = 1.0,
+    partial_out: bool = False,
+    impl: str = 'auto',
+) -> torch.Tensor:
+  """K10: ``x + Attn(LN(x))`` in W8A8, the output product over ``chunks``
+  head groups cast after each -> [B, T, D].  The reference's ``seq_group``
+  is TPU tiling and is not ported."""
+  check_partial_out(partial_out)
+  if chunks < 1 or num_heads % chunks:
+    raise ValueError(f'{chunks} chunks do not divide {num_heads} heads')
+  static = dict(num_heads=num_heads, dim_per_head=dim_per_head,
+                logit_cap=float(logit_cap), epsilon=epsilon,
+                query_scale=float(query_scale))
+  weights = (wq, sq, bq, wk, sk, bk, wv, sv, bv)
+  if not _lib.use_kernel(impl, x):
+    ctx = _reference_ctx(x, mask, ln_scale, ln_bias, *weights, **static)
+    return _chain(_parts(ctx, wo, so, chunks), bo, x)
+  _check_attention(x, mask, ln_scale, ln_bias, *weights, wo, so, bo,
+                   num_heads, dim_per_head, chunks)
+  b, t, d = x.shape
+  rows, nh = b * t, num_heads * dim_per_head
+  dev = x.device
+  out = torch.empty_like(x)
+  _lib.launch(
+      'vp_int8_attention_block', dev, x, mask, ln_scale, ln_bias, *weights,
+      wo, so, bo,
+      torch.empty((rows, d), dtype=torch.int8, device=dev),
+      torch.empty(rows, dtype=torch.float32, device=dev),
+      torch.empty((rows, 3 * nh), dtype=x.dtype, device=dev),
+      torch.empty((rows, nh), dtype=x.dtype, device=dev),
+      torch.empty((rows, nh), dtype=torch.int8, device=dev),
+      torch.empty((rows, chunks), dtype=torch.float32, device=dev),
+      torch.empty_like(x) if chunks > 1 else None, out,
+      b, t, d, num_heads, dim_per_head, mask.shape[0], mask.shape[1], chunks,
+      float(logit_cap), epsilon, float(query_scale))
+  _lib.LAUNCHES['int8_attention_block_chunked'] += 1
+  _lib.CHUNK_LAUNCHES['int8_attention_block_chunked', chunks] += 1
+  return out
+
+
+def int8_layer_block(
+    x: torch.Tensor,          # [B, T, D]
+    mask: torch.Tensor,       # [B|1, T|1, T] additive fp32
+    paddings: torch.Tensor,   # [B, T, 1]
+    ln1_scale: torch.Tensor, ln1_bias: torch.Tensor,
+    # int8 [D, N*H], fp32 [N*H], [N*H]
+    wq: torch.Tensor, sq: torch.Tensor, bq: torch.Tensor,
+    wk: torch.Tensor, sk: torch.Tensor, bk: torch.Tensor,
+    wv: torch.Tensor, sv: torch.Tensor, bv: torch.Tensor,
+    # int8 [N*H, D], fp32 [D], [D]
+    wo: torch.Tensor, so: torch.Tensor, bo: torch.Tensor,
+    ln2_scale: torch.Tensor, ln2_bias: torch.Tensor,
+    # int8 [D, F], fp32 [F], [F]
+    w1: torch.Tensor, s1: torch.Tensor, b1: torch.Tensor,
+    # int8 [F, D], fp32 [D], [D]
+    w2: torch.Tensor, s2: torch.Tensor, b2: torch.Tensor,
+    *,
+    num_heads: int,
+    dim_per_head: int,
+    logit_cap: float = 0.0,
+    epsilon: float = 1e-6,
+    query_scale: float = 1.0,
+    activation: str = 'gelu',
+    head_chunks: int | None = None,
+    ffn_chunks: int | None = None,
+    impl: str = 'auto',
+) -> torch.Tensor:
+  """K11: a whole pre-norm layer in W8A8, each half's chunk products summed
+  in fp32 and cast once -> [B, T, D].  Chunk counts default to the
+  reference's ``_layer_int8_cfg``."""
+  _check_activation(activation)
+  b, t, d = x.shape
+  nh = num_heads * dim_per_head
+  f = w1.shape[1]
+  if head_chunks is None or ffn_chunks is None:
+    cfg = _layer_int8_cfg(t, d, nh, f, num_heads, x.element_size())
+    if cfg is None:
+      raise ValueError(f'no int8 layer configuration for T={t}, D={d}, '
+                       f'N*H={nh}, F={f}')
+    head_chunks, ffn_chunks = cfg
+  if num_heads % head_chunks or f % ffn_chunks:
+    raise ValueError(f'({head_chunks}, {ffn_chunks}) chunks do not divide '
+                     f'{num_heads} heads and F={f}')
+  static = dict(num_heads=num_heads, dim_per_head=dim_per_head,
+                logit_cap=float(logit_cap), epsilon=epsilon,
+                query_scale=float(query_scale))
+  attn = (wq, sq, bq, wk, sk, bk, wv, sv, bv)
+  if not _lib.use_kernel(impl, x):
+    ctx = _reference_ctx(x, mask, ln1_scale, ln1_bias, *attn, **static)
+    x1 = _sum(_parts(ctx, wo, so, head_chunks), bo, x)
+    keep = 1.0 - paddings.float()
+    parts = _reference_hidden_parts(x1, keep, ln2_scale, ln2_bias, w1, s1,
+                                    b1, w2, s2, chunks=ffn_chunks,
+                                    activation=activation, epsilon=epsilon)
+    return _sum(parts, b2, x1, keep)
+  _check_attention(x, mask, ln1_scale, ln1_bias, *attn, wo, so, bo,
+                   num_heads, dim_per_head, head_chunks)
+  _lib.check_tensors(x.device, int8=_INT8, fp32=_FP32, paddings=paddings,
+                     ln2_scale=ln2_scale, ln2_bias=ln2_bias, w1=w1, s1=s1,
+                     b1=b1, w2=w2, s2=s2, b2=b2)
+  _lib.check(paddings.shape == (b, t, 1) and ln2_scale.shape == (d,)
+             and ln2_bias.shape == (d,) and w1.shape == (d, f)
+             and s1.shape == (f,) and b1.shape == (f,) and w2.shape == (f, d)
+             and s2.shape == (d,) and b2.shape == (d,),
+             'FFN operand shapes do not match x')
+  _check_multiple(F=f, F_chunk=f // ffn_chunks)
+  rows, dev = b * t, x.device
+  i8 = lambda *s: torch.empty(s, dtype=torch.int8, device=dev)
+  f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
+  act = lambda *s: torch.empty(s, dtype=x.dtype, device=dev)
+  out = torch.empty_like(x)
+  _lib.launch(
+      'vp_int8_layer_block', dev, x, mask, paddings, ln1_scale, ln1_bias,
+      *attn, wo, so, bo, ln2_scale, ln2_bias, w1, s1, b1, w2, s2, b2,
+      i8(rows, d), f32(rows), act(rows, 3 * nh), act(rows, nh), i8(rows, nh),
+      f32(rows, head_chunks), f32(rows, d), act(rows, d), f32(rows, f),
+      i8(rows, f), f32(rows, ffn_chunks), out,
+      b, t, d, num_heads, dim_per_head, f, mask.shape[0], mask.shape[1],
+      head_chunks, ffn_chunks, ACTIVATIONS[activation], float(logit_cap),
+      epsilon, float(query_scale))
+  _lib.LAUNCHES['int8_layer_block'] += 1
+  return out
+
+
+def int8_qkv_projection(
+    x: torch.Tensor,                                       # [rows, D]
+    ln_scale: torch.Tensor, ln_bias: torch.Tensor,         # [D]
+    # int8 [D, N*H], fp32 [N*H], [N*H]
+    wq: torch.Tensor, sq: torch.Tensor, bq: torch.Tensor,
+    wk: torch.Tensor, sk: torch.Tensor, bk: torch.Tensor,
+    wv: torch.Tensor, sv: torch.Tensor, bv: torch.Tensor,
+    *,
+    epsilon: float = 1e-6,
+    query_scale: float = 1.0,
+    impl: str = 'auto',
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+  """K12a: LN + W8A8 q/k/v projections, the query scale folded into q ->
+  q, k, v [rows, N*H] (on the card, column blocks of one [rows, 3*N*H]
+  buffer)."""
+  weights = (wq, sq, bq, wk, sk, bk, wv, sv, bv)
+  if not _lib.use_kernel(impl, x):
+    return _reference_qkv(x, ln_scale, ln_bias, *weights, epsilon=epsilon,
+                          query_scale=float(query_scale))
+  rows, d = x.shape
+  nh = wq.shape[1]
+  _lib.check_tensors(x.device, int8=_INT8, fp32=_FP32, x=x, ln_scale=ln_scale,
+                     ln_bias=ln_bias, wq=wq, sq=sq, bq=bq, wk=wk, sk=sk, bk=bk,
+                     wv=wv, sv=sv, bv=bv)
+  _lib.check(ln_scale.shape == (d,) and ln_bias.shape == (d,)
+             and all(w.shape == (d, nh) for w in (wq, wk, wv))
+             and all(v.shape == (nh,) for v in (sq, bq, sk, bk, sv, bv)),
+             'projection weight shapes do not match x')
+  _check_multiple(D=d, NH=nh)
+  dev = x.device
+  qkv = torch.empty((rows, 3 * nh), dtype=x.dtype, device=dev)
+  _lib.launch('vp_int8_qkv_projection', dev, x, ln_scale, ln_bias, *weights,
+              torch.empty((rows, d), dtype=torch.int8, device=dev),
+              torch.empty(rows, dtype=torch.float32, device=dev), qkv,
+              rows, d, nh, epsilon, float(query_scale))
+  _lib.LAUNCHES['int8_qkv_projection'] += 1
+  return qkv[:, :nh], qkv[:, nh:2 * nh], qkv[:, 2 * nh:]
+
+
+def int8_out_projection(
+    ctx: torch.Tensor,        # [rows, N*H]
+    resid: torch.Tensor,      # [rows, D] (the pre-attention input)
+    # int8 [N*H, D], fp32 [D], [D]
+    wo: torch.Tensor, so: torch.Tensor, bo: torch.Tensor,
+    *,
+    partial_out: bool = False,
+    impl: str = 'auto',
+) -> torch.Tensor:
+  """K12b: W8A8 output projection + bias + residual -> [rows, D] in
+  resid's dtype."""
+  check_partial_out(partial_out)
+  if not _lib.use_kernel(impl, ctx):
+    return _chain(_parts(ctx, wo, so, 1), bo, resid)
+  rows, nh = ctx.shape
+  d = wo.shape[1]
+  _lib.check_tensors(ctx.device, int8=_INT8, fp32=_FP32, ctx=ctx, resid=resid,
+                     wo=wo, so=so, bo=bo)
+  _lib.check(resid.shape == (rows, d) and wo.shape == (nh, d)
+             and so.shape == (d,) and bo.shape == (d,),
+             'out-projection operand shapes do not match ctx')
+  _check_multiple(D=d, NH=nh)
+  dev = ctx.device
+  out = torch.empty_like(resid)
+  _lib.launch('vp_int8_out_projection', dev, ctx, resid, wo, so, bo,
+              torch.empty((rows, nh), dtype=torch.int8, device=dev),
+              torch.empty(rows, dtype=torch.float32, device=dev), out,
+              rows, nh, d)
+  _lib.LAUNCHES['int8_out_projection'] += 1
+  return out
+
+
+def int8_projected_flash_attention(
+    x: torch.Tensor,            # [B, T, D]
+    atten_mask: torch.Tensor,   # [B|1, 1, T|1, T] additive fp32
+    ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+    wq: torch.Tensor, sq: torch.Tensor, bq: torch.Tensor,
+    wk: torch.Tensor, sk: torch.Tensor, bk: torch.Tensor,
+    wv: torch.Tensor, sv: torch.Tensor, bv: torch.Tensor,
+    wo: torch.Tensor, so: torch.Tensor, bo: torch.Tensor,
+    *,
+    num_heads: int,
+    dim_per_head: int,
+    logit_cap: float = 0.0,
+    epsilon: float = 1e-6,
+    query_scale: float = 1.0,
+    partial_out: bool = False,
+    impl: str = 'auto',
+) -> torch.Tensor:
+  """The attention half for any T: K12a -> K5 (``flash_attention``) ->
+  K12b; returns ``x + attn(x)`` [B, T, D]."""
+  check_partial_out(partial_out)
+  b, t, d = x.shape
+  n, h = num_heads, dim_per_head
+  x2d = x.reshape(b * t, d)
+  q, k, v = int8_qkv_projection(
+      x2d, ln_scale, ln_bias, wq, sq, bq, wk, sk, bk, wv, sv, bv,
+      epsilon=epsilon, query_scale=query_scale, impl=impl)
+  heads = lambda a: a.reshape(b, t, n, h).transpose(1, 2).contiguous()
+  ctx = flash.fused_attention(heads(q), heads(k), heads(v),
+                              atten_mask.squeeze(1).float().contiguous(),
+                              logit_cap=logit_cap, impl=impl)
+  ctx = ctx.transpose(1, 2).reshape(b * t, n * h)
+  out = int8_out_projection(ctx, x2d, wo, so, bo, impl=impl)
+  return out.reshape(b, t, d)
+
+
+# ---------------------------------------------------------------------------
+# The reference's rule for the int8 routes and chunk counts, copied as pure
+# arithmetic (videoprism_tpu/ops/pallas/int8_blocks.py _INT8_BUDGET,
+# _ffn_int8_row_block, ffn_int8_chunks_for, _attn_int8_chunk_fits,
+# attention_int8_chunks_for, _LAYER_BUDGET, _LAYER_ATTN_GROUP_CAP,
+# _layer_int8_cfg, int8_layer_supported, _qkv_int8_row_block,
+# _out_int8_row_block, attn_int8_projection_supported).  The budgets are
+# the TPU's VMEM and tile nothing on Hopper; they are kept because the
+# route (K11 or K10 + K9 or K12) and the chunk counts change the rounding
+# (the scale of ctx and of the hidden activation per chunk, a cast per
+# chained chunk), so the port takes the reference's route to round as it
+# does.
+# ---------------------------------------------------------------------------
+
+_INT8_BUDGET = 14 * 2**20
+
+
+def _ffn_int8_row_block(rows: int, d: int, f_chunk: int,
+                        act_itemsize: int) -> int | None:
+  weights = 2 * d * f_chunk
+  for block in (512, 256, 128, 64, 32, 16, 8):
+    if rows % block:
+      continue
+    io = 2 * (3 * block * d * act_itemsize)
+    scratch = (block * d * 5 + block * f_chunk * 9 + block * d * 4)
+    if weights + io + scratch <= _INT8_BUDGET:
+      return block
+  return None
+
+
+def ffn_int8_chunks_for(rows: int, d: int, f: int,
+                        act_itemsize: int) -> int | None:
+  for chunks in (1, 2, 4, 8):
+    if f % chunks:
+      continue
+    if _ffn_int8_row_block(rows, d, f // chunks, act_itemsize) is not None:
+      return chunks
+  return None
+
+
+def _attn_int8_chunk_fits(t: int, d: int, gh: int, act_itemsize: int) -> bool:
+  weights = 4 * d * gh
+  temps = (t * d * 5
+           + 3 * t * gh * (4 + act_itemsize + 1)
+           + t * t * 4
+           + t * gh * (act_itemsize + 1)
+           + t * d * 4)
+  return weights + temps < _INT8_BUDGET
+
+
+def attention_int8_chunks_for(t: int, d: int, num_heads: int,
+                              dim_per_head: int,
+                              act_itemsize: int) -> int | None:
+  if not (t % 8 == 0 and t <= 1024 and d % 128 == 0):
+    return None
+  for chunks in (1, 2, 4):
+    if num_heads % chunks:
+      continue
+    if _attn_int8_chunk_fits(t, d, (num_heads // chunks) * dim_per_head,
+                             act_itemsize):
+      return chunks
+  return None
+
+
+_LAYER_BUDGET = 17 * 2**20
+_LAYER_ATTN_GROUP_CAP = int(2.5 * 2**20)
+
+
+def _layer_int8_cfg(t: int, d: int, nh_total: int, f: int, num_heads: int,
+                    act_itemsize: int) -> tuple[int, int] | None:
+  """(head_chunks, ffn_chunks) of K11, or None where the reference does
+  not run it."""
+  if not (t % 8 == 0 and t <= 1024 and d % 128 == 0
+          and nh_total % 128 == 0 and f % 128 == 0):
+    return None
+  weights = 4 * d * nh_total + 2 * d * f
+  persistent = (2 * 2 * t * d * act_itemsize + 2 * t * t * 4 + t * d * 5
+                + t * d * act_itemsize + t * d * 4)
+
+  def attn_peak(gh):
+    return (3 * t * gh * (4 + act_itemsize) + t * t * 4
+            + t * gh * (act_itemsize + 1))
+
+  head_chunks = None
+  for hc in (1, 2, 4):
+    if num_heads % hc or (nh_total // hc) % 128:
+      continue
+    if attn_peak(nh_total // hc) <= _LAYER_ATTN_GROUP_CAP:
+      head_chunks = hc
+      break
+  if head_chunks is None:
+    return None
+  for fcks in (1, 2, 4, 8):
+    if f % fcks or (f // fcks) % 128:
+      continue
+    ffn_peak = t * (f // fcks) * (4 + act_itemsize + 1)
+    if (weights + persistent
+        + max(attn_peak(nh_total // head_chunks), ffn_peak)
+        <= _LAYER_BUDGET):
+      return head_chunks, fcks
+  return None
+
+
+def int8_layer_supported(t: int, d: int, nh_total: int, f: int,
+                         num_heads: int, act_itemsize: int) -> bool:
+  return _layer_int8_cfg(t, d, nh_total, f, num_heads,
+                         act_itemsize) is not None
+
+
+def _qkv_int8_row_block(rows: int, d: int, nh: int,
+                        act_itemsize: int) -> int | None:
+  weights = 3 * d * nh
+  for block in (512, 256, 128, 64, 32, 16, 8):
+    if rows % block:
+      continue
+    io = 2 * (block * d + 3 * block * nh) * act_itemsize
+    temps = block * d * 5 + 3 * block * nh * 4
+    if weights + io + temps <= _INT8_BUDGET:
+      return block
+  return None
+
+
+def _out_int8_row_block(rows: int, nh: int, d: int,
+                        act_itemsize: int) -> int | None:
+  weights = nh * d
+  for block in (512, 256, 128, 64, 32, 16, 8):
+    if rows % block:
+      continue
+    io = 2 * (block * nh + 2 * block * d) * act_itemsize
+    temps = block * nh * 5 + block * d * 4
+    if weights + io + temps <= _INT8_BUDGET:
+      return block
+  return None
+
+
+def attn_int8_projection_supported(rows: int, d: int, nh: int,
+                                   act_itemsize: int) -> bool:
+  return (d % 128 == 0 and nh % 128 == 0
+          and _qkv_int8_row_block(rows, d, nh, act_itemsize) is not None
+          and _out_int8_row_block(rows, nh, d, act_itemsize) is not None)

@@ -38,7 +38,7 @@ from videoprism_tpu_torch.ops.kernels import _lib
 # -0.7 * float32 max and the select threshold half of it (ops/masks.py).
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 MASK_THRESHOLD = NEG_INF * 0.5
-_ACTIVATIONS = {'gelu': 1, 'relu': 2}
+ACTIVATIONS = {'gelu': 1, 'relu': 2}
 
 
 def ln_f32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -131,11 +131,11 @@ def _reference_attention_block_chunked(x, mask, ln_scale, ln_bias, wqkv, bqkv,
   return _residual_chain(ctx, wo, bo, x, chunks)
 
 
-def _check_partial_out(partial_out: bool) -> None:
+def check_partial_out(partial_out: bool) -> None:
   if partial_out:
     raise NotImplementedError(
         'partial_out (tensor parallelism, primer_hybrid) is not ported yet; '
-        'see ROADMAP.md')
+        'see ROADMAP.md, queue 1 items 3 and 13')
 
 
 def _launch_attention(x, mask, ln_scale, ln_bias, wqkv, bqkv, wo, bo, *,
@@ -193,7 +193,7 @@ def fused_attention_block(
   (``Wqkv = [Wq | Wk | Wv]``), as :func:`io.checkpoints.prepare_for_kernels`
   builds them once at load time.
   """
-  _check_partial_out(partial_out)
+  check_partial_out(partial_out)
   static = dict(num_heads=num_heads, dim_per_head=dim_per_head,
                 logit_cap=float(logit_cap), epsilon=epsilon,
                 query_scale=float(query_scale))
@@ -225,7 +225,7 @@ def fused_attention_block_chunked(
   """K1 over ``chunks`` head groups, each group's output cast and used as
   the next group's residual -> [B, T, D] (the JAX signature, with the
   fused weight layout of :func:`fused_attention_block`)."""
-  _check_partial_out(partial_out)
+  check_partial_out(partial_out)
   static = dict(num_heads=num_heads, dim_per_head=dim_per_head,
                 logit_cap=float(logit_cap), epsilon=epsilon,
                 query_scale=float(query_scale))
@@ -285,7 +285,7 @@ def _launch_ffn(x, paddings, ln_scale, ln_bias, w1, b1, w2, b2, *, chunks,
   out = torch.empty_like(x)
   _lib.launch('vp_ffn_block', x.device, x, paddings, ln_scale, ln_bias, w1,
               b1, w2, b2, h, a, tmp, out, rows, d, f, chunks,
-              _ACTIVATIONS[activation], epsilon)
+              ACTIVATIONS[activation], epsilon)
   return out
 
 
@@ -302,8 +302,8 @@ def fused_ffn_block(
     impl: str = 'auto',
 ) -> torch.Tensor:
   """Pre-LN FFN half-layer: ``x + keep * FFN(LN(x))`` -> [rows, D]."""
-  _check_partial_out(partial_out)
-  if activation not in _ACTIVATIONS:
+  check_partial_out(partial_out)
+  if activation not in ACTIVATIONS:
     raise ValueError(f'activation must be gelu or relu, got {activation!r}')
   static = dict(activation=activation, epsilon=epsilon)
   if not _lib.use_kernel(impl, x):
@@ -330,8 +330,8 @@ def fused_ffn_block_chunked(
 ) -> torch.Tensor:
   """K2 over ``chunks`` F-slices, each slice's output cast and used as the
   next slice's residual (b2 in the first only) -> [rows, D]."""
-  _check_partial_out(partial_out)
-  if activation not in _ACTIVATIONS:
+  check_partial_out(partial_out)
+  if activation not in ACTIVATIONS:
     raise ValueError(f'activation must be gelu or relu, got {activation!r}')
   static = dict(activation=activation, epsilon=epsilon)
   if chunks < 1 or w1.shape[1] % chunks:

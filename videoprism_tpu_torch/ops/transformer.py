@@ -14,6 +14,14 @@ JAX package's choice in ``_try_fused_layer``:
 * FFN: K8b ``fused_ffn_block_chunked`` where the reference chains F-slices,
   else K2 ``fused_ffn_block`` (``ops/kernels/``).
 
+A layer whose weights are int8 (``quantization.quantize_for_serving``)
+takes the reference's W8A8 route (``_try_fused_int8_layer``; see
+:func:`int8_plan`): K11 ``int8_layer_block`` for the whole layer, or K10
+``int8_attention_block_chunked`` (K12a + K5 + K12b
+``int8_projected_flash_attention`` past K10's T) and K9
+``int8_ffn_block_chunked``; a half (or a layer) the reference does not
+take in int8 is dequantized and runs the float path.
+
 Other 'pre' layers run the composed path (``multi_head_attention`` +
 :func:`transformer_ffn`).  The stack is a Python loop over the leading
 layer axis of ``x_layers`` (or over ``x_layers_{i}`` when ``scan=False``);
@@ -29,10 +37,12 @@ from typing import Any
 
 import torch
 
+from videoprism_tpu_torch import quantization
 from videoprism_tpu_torch.ops import attention as attention_lib
 from videoprism_tpu_torch.ops import basic
 from videoprism_tpu_torch.ops import masks as mask_lib
 from videoprism_tpu_torch.ops.kernels import _lib
+from videoprism_tpu_torch.ops.kernels import int8_blocks as i8
 from videoprism_tpu_torch.ops.kernels import transformer_block as tb
 
 Params = dict[str, Any]
@@ -102,6 +112,18 @@ def fused_attention_supported(t: int, atten_mask: torch.Tensor,
           and (dim_per_head is None or _lib.attention_fits(t, dim_per_head)))
 
 
+def _reference_layout(b: int, t: int, *, causal: bool) -> tuple[int, int]:
+  """(rows, T) of a [B, T] stack in the reference's layout: T padded to a
+  multiple of 8 and, without a causal mask, sequences shorter than 128
+  packed 128 // T to a sequence (``stacked_transformer``)."""
+  t_ref = t + (-t) % 8
+  rows = b * t_ref
+  group = 128 // t_ref if t_ref < 128 and 128 % t_ref == 0 else 1
+  if not causal and group > 1 and b % group == 0:
+    t_ref *= group
+  return rows, t_ref
+
+
 def chunk_plan(b: int, t: int, d: int, num_heads: int, dim_per_head: int,
                f: int, itemsize: int, *, causal: bool
                ) -> tuple[int | None, int | None]:
@@ -111,11 +133,7 @@ def chunk_plan(b: int, t: int, d: int, num_heads: int, dim_per_head: int,
   causal mask, sequences shorter than 128 packed 128 // T to a sequence
   (``stacked_transformer``); the FFN sees all rows at once.
   """
-  t_ref = t + (-t) % 8
-  rows = b * t_ref
-  group = 128 // t_ref if t_ref < 128 and 128 % t_ref == 0 else 1
-  if not causal and group > 1 and b % group == 0:
-    t_ref *= group
+  rows, t_ref = _reference_layout(b, t, causal=causal)
   nh = num_heads * dim_per_head
   attn_chunks = (None if tb.attention_block_supported(t_ref, d, nh, itemsize)
                  else tb.attention_chunks_for(t_ref, d, num_heads,
@@ -123,6 +141,151 @@ def chunk_plan(b: int, t: int, d: int, num_heads: int, dim_per_head: int,
   ffn_chunks = (None if tb.ffn_block_supported(rows, d, f, itemsize)
                 else tb.ffn_chunks_for(rows, d, f, itemsize))
   return attn_chunks, ffn_chunks
+
+
+@dataclasses.dataclass(frozen=True)
+class Int8Plan:
+  """The reference's W8A8 route for one layer: ``layer`` (head_chunks,
+  ffn_chunks) runs K11 for the whole layer; else the attention half runs
+  K10 over ``attn_chunks`` head groups, K12a + K5 + K12b where
+  ``projected``, or dequantized, and the FFN half K9 over ``ffn_chunks``
+  F-chunks, or dequantized (None)."""
+
+  layer: tuple[int, int] | None
+  attn_chunks: int | None
+  projected: bool
+  ffn_chunks: int | None
+
+
+def int8_plan(b: int, t: int, d: int, num_heads: int, dim_per_head: int,
+              f: int, itemsize: int, *, causal: bool,
+              mask_covers: bool = True) -> Int8Plan | None:
+  """The route ``_try_fused_int8_layer`` takes for a [B, T, D] int8 layer,
+  read at the reference's padded and packed lengths (as
+  :func:`chunk_plan`); None where it dequantizes the whole layer.
+  ``mask_covers``: the attention mask spans T (it does in every stack)."""
+  rows, t_ref = _reference_layout(b, t, causal=causal)
+  nh = num_heads * dim_per_head
+  attn_chunks = (i8.attention_int8_chunks_for(t_ref, d, num_heads,
+                                              dim_per_head, itemsize)
+                 if mask_covers else None)
+  projected = (attn_chunks is None and mask_covers
+               and i8.attn_int8_projection_supported(rows, d, nh, itemsize))
+  ffn_chunks = i8.ffn_int8_chunks_for(rows, d, f, itemsize)
+  if attn_chunks is None and not projected and ffn_chunks is None:
+    return None
+  layer = None
+  if mask_covers and rows <= 16384:
+    layer = i8._layer_int8_cfg(t_ref, d, nh, f, num_heads, itemsize)
+  return Int8Plan(layer, attn_chunks, projected, ffn_chunks)
+
+
+def int8_attention_weights(attn: Params) -> dict[str, torch.Tensor]:
+  """Wo int8 [.., N*H, D] from the int8 (D, N, H) ``post`` weights (the
+  reference's ``transpose(1, 2, 0).reshape(nh, d)``); leading (layer) axes
+  are kept."""
+  return {'wo': attn['post']['w'].flatten(-2).transpose(-1, -2).contiguous()}
+
+
+def _int8_layer(params: Params, inputs: torch.Tensor,
+                paddings: torch.Tensor | None, atten_mask: torch.Tensor,
+                cfg: TransformerLayerConfig, impl: str
+                ) -> torch.Tensor | None:
+  """An int8 layer through the W8A8 kernels, or None where the reference
+  dequantizes the whole layer (a per-dim scale, an activation other than
+  gelu/relu, or no int8 route for either half).  On the card, K10's and
+  K11's attention core is K1's: a sequence it cannot hold takes K12a + K5
+  + K12b where that is the same arithmetic (one head group; K11 also one
+  F-chunk, its FFN half then being K9's), and raises ``ValueError`` naming
+  the limit otherwise, or where K5 cannot take the head dim (giant's 88).
+  The conditions of the reference's route that the port's layer config
+  cannot break (inference, the 'pre' policy, residual weight 1, biases)
+  are not asked again."""
+  if cfg.enable_per_dim_scale or cfg.activation not in ('gelu', 'relu'):
+    return None
+  b, t, d = inputs.shape
+  attn, ff = params['self_attention'], params['ff_layer']
+  n, h = attn['query']['w'].shape[-2:]
+  nh = n * h
+  f = ff['ffn_layer1']['linear']['kernel'].shape[-1]
+  plan = int8_plan(b, t, d, n, h, f, inputs.element_size(),
+                   causal=cfg.enable_causal_atten,
+                   mask_covers=atten_mask.shape[-1] == t)
+  if plan is None:
+    return None
+  dtype = cfg.dtype
+  cast = lambda a: basic.cast_floating(a, dtype)
+  flat = lambda p: (p['w'].reshape(d, nh), p['w_scale'].reshape(nh).float(),
+                    cast(p['b']).reshape(nh))
+  qkv = (*flat(attn['query']), *flat(attn['key']), *flat(attn['value']))
+  out_w = ((attn.get('fused') or int8_attention_weights(attn))['wo'],
+           attn['post']['w_scale'].float(), cast(attn['post']['b']))
+  lin = lambda name: (ff[name]['linear']['kernel'],
+                      ff[name]['linear']['kernel_scale'].float(),
+                      cast(ff[name]['linear']['bias']))
+  ln = lambda p: (cast(p['scale']), cast(p['bias']))
+  static = dict(num_heads=n, dim_per_head=h, logit_cap=cfg.logit_cap,
+                epsilon=1e-6, query_scale=h ** -0.5, impl=impl)
+  mask3 = atten_mask.squeeze(1).float()
+
+  layer, attn_chunks, projected = plan.layer, plan.attn_chunks, plan.projected
+  ffn_chunks = plan.ffn_chunks
+  on_card = _lib.use_kernel(impl, inputs)
+  if (layer or attn_chunks) and on_card and not _lib.attention_fits(t, h):
+    one_chunk = layer == (1, 1) if layer else attn_chunks == 1
+    if not one_chunk:
+      raise ValueError(
+          f"T={t}, H={h}: the int8 attention block's core holds T <= "
+          f'{_lib.max_attention_t(h)} at this head dim, and the reference '
+          f'chunks this layer ({layer or attn_chunks}), which the '
+          'long-sequence route (K12a + K5 + K12b) does not round as')
+    if layer:
+      ffn_chunks = 1
+    layer, attn_chunks, projected = None, None, True
+  if projected and on_card and h % 16:
+    raise ValueError(
+        f'T={t} at head dim {h}: the int8 attention block holds T <= '
+        f'{min(_lib.max_attention_t(h), MAX_FUSED_ATTENTION_T)} at this '
+        'head dim, and the long-sequence route (K12a + K5 + K12b) takes '
+        'head dims that are multiples of 16 only')
+  if layer:
+    pads = (paddings.reshape(b, t, 1).to(dtype) if paddings is not None
+            else torch.zeros((b, t, 1), dtype=dtype, device=inputs.device))
+    return i8.int8_layer_block(
+        inputs, mask3, pads, *ln(params['layer_norm']), *qkv, *out_w,
+        *ln(ff['layer_norm']), *lin('ffn_layer1'), *lin('ffn_layer2'),
+        activation=cfg.activation, head_chunks=layer[0],
+        ffn_chunks=layer[1], **static)
+
+  if attn_chunks:
+    x = i8.int8_attention_block_chunked(
+        inputs, mask3, *ln(params['layer_norm']), *qkv, *out_w,
+        chunks=attn_chunks, **static)
+  elif projected:
+    x = i8.int8_projected_flash_attention(
+        inputs, atten_mask.float(), *ln(params['layer_norm']), *qkv, *out_w,
+        **static)
+  else:   # no int8 attention route: the attention half dequantized
+    attn_deq = quantization.dequantize({'self_attention': attn},
+                                       dtype)['self_attention']
+    normed = basic.layer_norm(params['layer_norm'], inputs, dtype=dtype,
+                              impl=impl)
+    x = inputs + attention_lib.multi_head_attention(
+        attn_deq, normed, normed, normed, atten_mask, hidden_dim=d,
+        num_heads=cfg.num_heads, logit_cap=cfg.logit_cap,
+        enable_per_dim_scale=False, dtype=dtype, impl='flash',
+        kernel_impl=impl)
+
+  if ffn_chunks is None:
+    ff_deq = quantization.dequantize({'ff_layer': ff}, dtype)['ff_layer']
+    return transformer_ffn(ff_deq, x, paddings, cfg, impl=impl)
+  pad_rows = (paddings.reshape(b * t, 1).to(dtype) if paddings is not None
+              else torch.zeros((b * t, 1), dtype=dtype, device=inputs.device))
+  out = i8.int8_ffn_block_chunked(
+      x.reshape(b * t, d), pad_rows, *ln(ff['layer_norm']),
+      *lin('ffn_layer1'), *lin('ffn_layer2'), chunks=ffn_chunks,
+      activation=cfg.activation, epsilon=1e-6, impl=impl)
+  return out.reshape(b, t, d)
 
 
 def fused_attention_weights(attn: Params, dtype: torch.dtype
@@ -158,6 +321,11 @@ def transformer_layer(params: Params, inputs: torch.Tensor,
   """
   _check_policy(cfg)
   dtype = cfg.dtype
+  if quantization.is_quantized(params):
+    out = _int8_layer(params, inputs, paddings, atten_mask, cfg, impl)
+    if out is not None:
+      return out
+    params = quantization.dequantize(params, dtype)
   if not fused_layer_supported(cfg):
     normed = basic.layer_norm(params['layer_norm'], inputs, dtype=dtype,
                               impl=impl)
