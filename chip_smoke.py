@@ -12,14 +12,18 @@ result):
   3. kernels      every kernel against its plain twin at the shapes of the
                   encoder, CLIP, classifier and int8 paths for two requests
                   (K9 and K10 also at 2 chunks, K11 at (2, 2)) and of the
-                  int8 giant encoder for one (K10 and K9 at 2 chunks), and
+                  int8 giant encoder for one (K10 and K9 at 2 chunks), K7
+                  at the lvt base train step's for two clips (no ctx at
+                  the auxiliary shape, ctx at the spatial, temporal and
+                  causal text shapes, fully masked rows, cap 0), and
                   K1 at its capacity (ops/kernels/cases.py tolerances;
                   K8a, K8b and chunked K9/K10 also against their one-chunk
                   twins); each
                   kernel's time per call (CUDA events) and on the device
                   (profiler) beside its twin's, its bound and a library
                   call's (int8 kernels: torch._int_mm over their int8
-                  products);
+                  products; K7: SDPA's uncapped forward + backward, a
+                  yardstick);
   4. gate         a layer at T = 1024 (past K1's capacity at H = 64) takes
                   K6 + K5 and agrees with the plain path; at giant's head
                   dim a sequence past K1's capacity raises ValueError;
@@ -76,7 +80,20 @@ result):
  15. int8-golden  the tiny int8 configs of tests/data/torch_port_int8_golden.npz
                   through the kernels in bf16 against the JAX package's fp32
                   int8-kernel outputs (3x the bf16 twin's CPU error);
- 16. times        the encoder forward, the video + text CLIP request and the
+ 16. train        lvt base training with seeded fp32 master weights: the B=2
+                  loss and gradient of the kernel path (bf16 activations)
+                  against the plain path in fp32 (impl='reference', autograd
+                  through the twins; the bf16 plain path printed beside
+                  it), the launches of one step (the CLIP request's forward
+                  and K7 30 times, 28 with the context), then 3 steps of
+                  make_train_step (AdamW, 1 warmup step) at B=8: params
+                  unchanged after step 1 (lr(0) = 0), moved after step 3,
+                  ms per step and peak memory;
+ 17. train-golden the tiny CLIP config's loss and gradient through the
+                  kernels in bf16 against the JAX package's fp32 values of
+                  tests/data/torch_port_train_golden.npz (3x the bf16 CPU
+                  path's error per leaf group);
+ 18. times        the encoder forward, the video + text CLIP request and the
                   large classifier's forward at 1 and 8, and the giant
                   classifier's at 1, kernel path and impl='reference', with
                   CUDA events after warm-up; the int8 encoder and int8 CLIP
@@ -84,7 +101,8 @@ result):
                   path).
 The seeded npz files of phases 12 and 13 are written to a temporary
 directory under build/ and removed.  Counts of kernel launches are set to 0
-before each path's phase (5, 7, 9, 10, 12, 13 and 14) and read after it.
+before each path's phase (5, 7, 9, 10, 12, 13, 14 and 16) and read after
+it.
 The line before the last is the per-kernel
 JSON record; the last line is {"ok": true, "device": {...}}.
 """
@@ -119,6 +137,8 @@ from videoprism_tpu_torch.ops import masks as mask_lib
 from videoprism_tpu_torch.ops import transformer as transformer_lib
 from videoprism_tpu_torch.ops.kernels import _lib
 from videoprism_tpu_torch.ops.kernels import cases as cases_lib
+from videoprism_tpu_torch.train import objectives
+from videoprism_tpu_torch.train import train_step as train_lib
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, 'tests', 'data', 'torch_port_golden.npz')
@@ -128,6 +148,8 @@ VC_GOLDEN = os.path.join(ROOT, 'tests', 'data',
                          'torch_port_classifier_golden.npz')
 INT8_GOLDEN = os.path.join(ROOT, 'tests', 'data',
                            'torch_port_int8_golden.npz')
+TRAIN_GOLDEN = os.path.join(ROOT, 'tests', 'data',
+                            'torch_port_train_golden.npz')
 # Per-token (per-embedding) cosine to the reference that every model-level
 # check demands.
 MIN_COSINE = 0.999
@@ -143,8 +165,20 @@ CLIP_GOLDEN_ATOL = 0.01
 # with |max| 3.8, where one bf16 ulp is 0.016; the bf16 twin is at 0.017 and
 # 0.026 max error on the CPU.  0.08 leaves 3x margin over the larger.
 VC_GOLDEN_ATOL = 0.08
-# int8 golden: 3x the bf16 twin's max error on the CPU, per output.
+# int8 golden: 3x the bf16 twin's max error on the CPU, per output; the
+# train golden likewise per leaf group.
 INT8_GOLDEN_RATIO = 3.0
+# [train] at B=2, the kernel path (bf16 activations) against the plain path
+# with fp32 activations: the loss, and the cosine of the whole gradient and
+# each per-leaf cosine over leaves of at least TRAIN_MIN_LEAF elements, at
+# these floors or, where the bf16 plain path falls below them (it does:
+# with seeded weights the InfoNCE loss sits at ln 2 and its gradient is
+# small beside bf16 rounding), within FP32_ERR_RATIO of that path's
+# distance.
+TRAIN_LOSS_ATOL = 1e-2
+TRAIN_MIN_COSINE = 0.999
+TRAIN_MIN_LEAF_COSINE = 0.99
+TRAIN_MIN_LEAF = 1024
 FRAMES, SIZE = 16, 288
 VC_FRAMES = 8
 TEXT_LEN = 64
@@ -190,10 +224,14 @@ KERNELS = {  # wrapper -> (hand-written source, TPU kernel it replaces)
     'int8_out_projection': (
         'videoprism_tpu_torch/csrc/int8_blocks.cu',
         'videoprism_tpu/ops/pallas/int8_blocks.py:726'),
+    'fused_attention_bwd': (
+        'videoprism_tpu_torch/csrc/flash_attention_bwd.cu',
+        'videoprism_tpu/ops/pallas/flash_attention.py:291'),
 }
 DEVICE_KERNELS = ('ln_rows_kernel', 'gemm_bf16_kernel',
                   'capped_attention_kernel', 'flash_attention_kernel',
-                  'quant_rows_kernel', 'gemm_i8_kernel')
+                  'quant_rows_kernel', 'gemm_i8_kernel',
+                  'flash_bwd_query_kernel', 'flash_bwd_key_kernel')
 _ENCODER = {'fused_attention_block': 16, 'fused_ffn_block': 16,
             'spatial_to_temporal': 1, 'temporal_to_output': 1}
 PER_FORWARD = {k: _ENCODER.get(k, 0) for k in KERNELS}
@@ -210,6 +248,13 @@ PER_CLIP_REQUEST = {
     'text': {k: _TEXT.get(k, 0) for k in KERNELS},
     'video+text': {k: _VIDEO.get(k, 0) + _TEXT.get(k, 0) for k in KERNELS},
 }
+# Launches per train step of lvt base (video + text, forward and
+# backward): the forward's are the CLIP request's, and every attention
+# backward is one K7 call, with the context under K1 (12 spatial, 4
+# temporal and 12 text layers) and without it under K5 (the 2 auxiliary
+# layers).  The backward launches no forward kernel.
+PER_TRAIN_STEP = dict(PER_CLIP_REQUEST['video+text'], fused_attention_bwd=30)
+TRAIN_K7_WITH_CTX = 28
 # Launches per classifier forward: 24 + 4 layers of K1 and K8b (2 F-slices)
 # at large, 40 + 4 of K8a (2 head groups) and K8b (4 F-slices) at giant;
 # the boundaries; the pooler's output LN (K6).
@@ -339,7 +384,8 @@ def phase_kernels(device) -> dict[str, dict]:
                + cases_lib.wide_path_cases(device, batch=2)
                + cases_lib.capacity_cases(device, batch=2)
                + cases_lib.int8_path_cases(device, batch=2)
-               + cases_lib.int8_giant_cases(device, batch=1)):
+               + cases_lib.int8_giant_cases(device, batch=1)
+               + cases_lib.flash_bwd_path_cases(device, batch=2)):
     r = cases_lib.run_case(case)
     chunked = ''
     if 'differ_chunked' in r:
@@ -410,6 +456,9 @@ def phase_kernels(device) -> dict[str, dict]:
                                     padded=False, chunks=2, device=device),
       cases_lib.int8_ffn_case(2048, 1408, 6144, activation='gelu',
                               padded=False, chunks=2, device=device),
+      # K7 at the lvt base train step's shapes for two clips (the
+      # auxiliary encoder's first).
+      *cases_lib.flash_bwd_path_cases(device, batch=2),
   ]
   for case in timed:
     run = lambda impl: case.fn(*case.args, **case.kwargs, impl=impl)
@@ -444,10 +493,17 @@ def phase_kernels(device) -> dict[str, dict]:
                                      impl='kernel'), warmup=3, iters=20)
   print(f'[kernels] yardstick {case.label} without a cap: kernel '
         f'{nocap_ms:.4f} ms, scaled_dot_product_attention {sdpa_ms:.4f} ms')
-  k7_ms, k7_by = cases_lib.flash_backward_bound(*q.shape[:3], k.shape[2],
-                                                q.shape[3])
-  print(f'[kernels] K7 (the flash backward, not ported yet): bound at '
-        f'{case.label} {k7_ms:.4f} ms ({k7_by})')
+  # K7's yardstick, likewise not the same function: SDPA's forward and
+  # backward without a cap, on each K7 case's q, k, v and dO.
+  for case in (c for c in timed if c.kernel == 'fused_attention_bwd'):
+    q, k, v, _, do = (a.detach().requires_grad_(i < 3)
+                      for i, a in enumerate(case.args))
+    sdpa = lambda: torch.autograd.grad(
+        torch.nn.functional.scaled_dot_product_attention(q, k, v),
+        (q, k, v), do)
+    print(f'[kernels] yardstick {case.label}: scaled_dot_product_attention '
+          f'forward + backward without a cap '
+          f'{cuda_ms(sdpa, warmup=3, iters=10):.4f} ms')
   return record
 
 
@@ -1047,6 +1103,184 @@ def phase_int8_golden(device) -> None:
     check(err <= atol and cos >= MIN_COSINE, f'int8 golden mismatch in {key}')
 
 
+def _named_leaves(tree, prefix=''):
+  for k, v in tree.items():
+    if isinstance(v, dict):
+      yield from _named_leaves(v, f'{prefix}/{k}')
+    else:
+      yield f'{prefix}/{k}', v
+
+
+def _grad_leaves(grads):
+  params, log_temperature = grads
+  return [*_named_leaves(params), ('/log_temperature', log_temperature)]
+
+
+def _grad_cosines(got, want):
+  """(cosine of the whole concatenated gradient, {leaf: cosine} over the
+  leaves of at least TRAIN_MIN_LEAF elements), in float64."""
+  dot = na = nb = 0.0
+  leaves = {}
+  for (name, a), (_, b) in zip(_grad_leaves(got), _grad_leaves(want)):
+    a, b = a.double().flatten(), b.double().flatten()
+    d, x, y = (a @ b).item(), (a @ a).item(), (b @ b).item()
+    dot, na, nb = dot + d, na + x, nb + y
+    if a.numel() >= TRAIN_MIN_LEAF:
+      leaves[name] = d / max(math.sqrt(x * y), 1e-300)
+  return dot / math.sqrt(na * nb), leaves
+
+
+def _train_batch(b: int, device, seed: int) -> dict[str, torch.Tensor]:
+  ids, pads = _text(b, device, seed + 1)
+  return {'video': _video(b, device, seed), 'text_token_ids': ids,
+          'text_paddings': pads}
+
+
+def phase_train(device, smi: str):
+  """lvt base contrastive training at full width: B=2 gradients of the
+  kernel path against the plain path in fp32, the launches of a step, and
+  3 steps of make_train_step at B=8 with AdamW; ms per step and peak
+  memory."""
+  model = registry.get_model(CLIP_MODEL, fprop_dtype=torch.bfloat16)
+  cfg = model.config
+  tree = init_lib.numpy_video_clip(0, cfg, norm_bias_std=0.1)
+  params = params_from_numpy(tree, device=device)   # fp32 master weights
+  trainable = (params, objectives.init_temperature_state('infonce',
+                                                         device=device))
+  vg = train_lib.value_and_grad(train_lib.clip_loss_fn)
+  batch = _train_batch(2, device, seed=110)
+  _lib.reset_launches()
+  (loss, _), grads = vg(trainable, batch, cfg)
+  torch.cuda.synchronize()
+  per = launches_since({})
+  ctx = _lib.CTX_LAUNCHES['fused_attention_bwd']
+  print(f'[train] B=2 value_and_grad launches '
+        f'{ {k: v for k, v in per.items() if v} }, K7 with ctx {ctx}')
+  check(per == PER_TRAIN_STEP and ctx == TRAIN_K7_WITH_CTX,
+        f'train step launches {per} (K7 with ctx {ctx}) != {PER_TRAIN_STEP} '
+        f'({TRAIN_K7_WITH_CTX} with ctx)')
+  check(all(bool(torch.isfinite(g).all()) for _, g in _grad_leaves(grads)),
+        'non-finite gradient on the kernel path')
+  cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+  (loss32, _), grads32 = vg(trainable, batch, cfg32, impl='reference')
+  torch.cuda.empty_cache()
+  (loss16, _), grads16 = vg(trainable, batch, cfg, impl='reference')
+  torch.cuda.empty_cache()
+  cos, leaves = _grad_cosines(grads, grads32)
+  cos16, leaves16 = _grad_cosines(grads16, grads32)
+  cos_twin, _ = _grad_cosines(grads, grads16)
+  # Softmax ignores a shift of a query's logits, so a key bias's exact
+  # gradient is 0: both bf16 paths return rounding noise there, and those
+  # leaves are printed but not gated.
+  gated = [k for k in leaves if not k.endswith('/key/b')]
+  worst = min(gated, key=leaves.get)
+  worst16 = min(gated, key=leaves16.get)
+  print(f'[train] B=2 loss: kernels {loss.item():.6f}, fp32 plain path '
+        f'{loss32.item():.6f}, bf16 plain path {loss16.item():.6f}')
+  print(f'[train] B=2 gradient vs the fp32 plain path: cosine over the '
+        f'whole gradient {cos:.6f} (bf16 plain path {cos16:.6f}; kernels vs '
+        f'the bf16 plain path {cos_twin:.6f}); least per-leaf cosine over '
+        f'the leaves of >= {TRAIN_MIN_LEAF} elements but the key biases '
+        f'{leaves[worst]:.6f} at {worst} (bf16 plain path '
+        f'{leaves16[worst16]:.6f} at {worst16})')
+  for name in sorted(leaves, key=leaves.get)[:10]:
+    print(f'[train]   leaf {name}: kernels {leaves[name]:.6f}, bf16 plain '
+          f'path {leaves16[name]:.6f}')
+  check(abs(loss.item() - loss32.item()) <= TRAIN_LOSS_ATOL,
+        f'loss {loss.item()} vs fp32 {loss32.item()}')
+  # Each cosine passes at its floor, or where the bf16 plain path itself
+  # falls below it, when the kernels are no farther from the fp32 path
+  # (1 - cosine) than FP32_ERR_RATIO times the bf16 plain path.
+  near = lambda c, c16, floor: (
+      c >= floor or 1.0 - c <= cases_lib.FP32_ERR_RATIO * (1.0 - c16))
+  check(near(cos, cos16, TRAIN_MIN_COSINE),
+        f'gradient cosine {cos} < {TRAIN_MIN_COSINE} and farther than '
+        f'{cases_lib.FP32_ERR_RATIO}x the bf16 plain path ({cos16})')
+  bad = [k for k in gated
+         if not near(leaves[k], leaves16[k], TRAIN_MIN_LEAF_COSINE)]
+  check(not bad, f'leaf gradient cosines below {TRAIN_MIN_LEAF_COSINE} and '
+        f'farther than {cases_lib.FP32_ERR_RATIO}x the bf16 plain path: '
+        f'{ {k: (leaves[k], leaves16[k]) for k in bad} }')
+  del grads, grads32, grads16
+  torch.cuda.empty_cache()
+
+  opt = train_lib.make_optimizer(learning_rate=1e-4, warmup_steps=1,
+                                 total_steps=100)
+  state = train_lib.create_train_state(0, cfg, opt, pretrained_params=params,
+                                       device=device)
+  step = train_lib.make_train_step(cfg, opt)
+  batch = _train_batch(8, device, seed=120)
+  start = [p.clone() for _, p in _named_leaves(state.params)]
+  _lib.reset_launches()
+  for i in range(3):
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    loss = metrics['loss'].item()
+    check(math.isfinite(loss), f'non-finite loss at step {i + 1}')
+    now = [p for _, p in _named_leaves(state.params)]
+    moved = sum(not torch.equal(a, b) for a, b in zip(start, now))
+    print(f'[train] B=8 step {i + 1}: loss {loss:.6f}, grad_norm '
+          f'{metrics["grad_norm"].item():.6f}, lr '
+          f'{opt.learning_rate(i):.3g}, leaves moved {moved} of '
+          f'{len(now)}, peak device memory {peak_gb:.3f} GiB')
+    if i == 0:
+      check(moved == 0, f'{moved} leaves moved at lr(0) = 0')
+  check(moved > 0, 'no leaf moved after 3 steps')
+  launches = dict(_lib.LAUNCHES)
+  check(launches_since({}) == {k: 3 * v for k, v in PER_TRAIN_STEP.items()},
+        f'3 steps launched {launches}')
+  ms = cuda_ms(lambda: step(state, batch), warmup=2, iters=5)
+  print(f'[train] B=8 step (make_train_step, AdamW): {ms:.3f} ms/step, '
+        f'{8000.0 / ms:.2f} clips/s, peak device memory {peak_gb:.3f} GiB '
+        f'({smi})')
+  del state, start, now, params, trainable
+  torch.cuda.empty_cache()
+  return launches
+
+
+def phase_train_golden(device) -> None:
+  """The tiny CLIP config's loss and gradients through the kernels in bf16
+  against the JAX package's fp32 values."""
+  g = np.load(TRAIN_GOLDEN)
+  cfg_dict = json.loads(str(g['config']))
+  cfg = clip_lib.VideoCLIPConfig(
+      **cfg_dict | {'pos_emb_shape': tuple(cfg_dict['pos_emb_shape'])},
+      dtype=torch.bfloat16)
+  params = init_lib.init_video_clip(int(g['param_seed']), cfg, device=device,
+                                    norm_bias_std=float(g['norm_bias_std']))
+  rng = np.random.default_rng(int(g['input_seed']))
+  video = rng.standard_normal(tuple(g['video_shape'])).astype(np.float32)
+  lengths = np.asarray(g['text_lengths'])
+  ids = rng.integers(0, cfg.vocabulary_size,
+                     size=(len(lengths), lengths.max())).astype(np.int32)
+  pads = (np.arange(lengths.max())[None, :]
+          >= lengths[:, None]).astype(np.float32)
+  on_card = lambda a: torch.from_numpy(a).to(device)
+  batch = {'video': on_card(video), 'text_token_ids': on_card(ids),
+           'text_paddings': on_card(pads)}
+  _lib.reset_launches()
+  (loss, _), grads = train_lib.value_and_grad(train_lib.clip_loss_fn)(
+      (params, objectives.init_temperature_state('infonce', device=device)),
+      batch, cfg, impl='kernel')
+  torch.cuda.synchronize()
+  check(_lib.LAUNCHES['fused_attention_bwd'] > 0
+        and _lib.CTX_LAUNCHES['fused_attention_bwd'] > 0
+        and _lib.LAUNCHES['fused_attention'] > 0,
+        f'the tiny CLIP step did not run K7 both ways: {dict(_lib.LAUNCHES)}')
+  errs = {'loss': abs(loss.item() - float(g['loss']))}
+  for name, grad in _grad_leaves(grads):
+    group = name.strip('/').split('/')[0]
+    err = (grad.float().cpu() - torch.from_numpy(g[f'grad{name}'])).abs()
+    errs[group] = max(errs.get(group, 0.0), err.max().item())
+  for group, err in errs.items():
+    atol = INT8_GOLDEN_RATIO * float(g[f'bf16_twin_err_{group}'])
+    print(f'[train-golden] tiny config {group}, bf16 kernels vs JAX fp32: '
+          f'max abs err {err:.4g} (atol {atol:.4g}, 3x the bf16 twin\'s)')
+    check(err <= atol, f'train golden mismatch in {group}')
+
+
 def phase_times(device, model, params, clip_model, clip_params, vc_runs,
                 int8_runs, smi: str) -> None:
   for b in (1, 8):
@@ -1113,6 +1347,8 @@ def main() -> int:
       device, giant_tree, giant[1]['encoder'])
   del giant_tree
   phase_int8_golden(device)
+  train_launches = phase_train(device, smi)
+  phase_train_golden(device)
   phase_times(device, model, params, clip_model, clip_params,
               (('vc large', vc, (1, 8)), ('vc giant', giant, (1,))),
               (('int8 encoder', int8, (1, 8), _video),
@@ -1126,7 +1362,8 @@ def main() -> int:
                'vc-giant': giant_launches.get(k, 0),
                'int8-encoder': int8_launches.get(k, 0),
                'int8-clip': int8_clip_launches.get(k, 0),
-               'int8-giant': int8_giant_launches.get(k, 0)}
+               'int8-giant': int8_giant_launches.get(k, 0),
+               'train': train_launches.get(k, 0)}
     launches = sum(by_path.values())
     check(launches > 0, f'{k} never launched on a path')
     rec = record[k]

@@ -10,11 +10,16 @@ name, the share of each, and the device's idle share (wall time of the
 traced forwards minus the device time of their kernels, over the wall
 time).  ``--quantize int8`` quantizes the seeded fp32 weights for the
 W8A8 kernels (K9-K12b) first: every transformer layer's (a classifier's
-pooler and head stay float).
+pooler and head stay float).  ``--train`` traces train steps of the CLIP
+model instead (``make_train_step``: forward, autograd backward through the
+kernels' Functions and K7, AdamW on fp32 master weights) and also sums the
+device time by kind: the hand-written kernels, library GEMMs (the
+backwards' products) and the rest (elementwise, reductions, the
+optimizer).
 
     python scripts/profile_torch_forward.py --batch 8 [--impl reference] \
         [--model videoprism_lvt_public_v1_base | videoprism_vc_v1_large] \
-        [--quantize int8]
+        [--quantize int8] [--train]
 """
 
 from __future__ import annotations
@@ -37,6 +42,21 @@ from videoprism_tpu_torch.io.checkpoints import (  # noqa: E402
 )
 from videoprism_tpu_torch.models import init as init_lib  # noqa: E402
 from videoprism_tpu_torch.models import registry  # noqa: E402
+from videoprism_tpu_torch.train import train_step as train_lib  # noqa: E402
+
+# Device kernels of csrc/ (the rest are PyTorch's and its libraries').
+HAND_WRITTEN = ('ln_rows_kernel', 'gemm_bf16_kernel', 'capped_attention_kernel',
+                'flash_attention_kernel', 'flash_bwd_query_kernel',
+                'flash_bwd_key_kernel', 'quant_rows_kernel', 'gemm_i8_kernel')
+
+
+def _kind(name: str) -> str:
+  if any(k in name for k in HAND_WRITTEN):
+    return 'hand-written kernels'
+  if any(k in name.lower() for k in ('gemm', 'xmma', 'cutlass', 'cublas',
+                                     'nvjet')):
+    return 'library GEMMs'
+  return 'other (elementwise, reductions, copies)'
 
 
 def main() -> None:
@@ -52,7 +72,12 @@ def main() -> None:
   parser.add_argument('--iters', type=int, default=3)
   parser.add_argument('--top', type=int, default=12)
   parser.add_argument('--quantize', choices=('int8',), default=None)
+  parser.add_argument('--train', action='store_true',
+                      help='trace train steps of the CLIP model')
   args = parser.parse_args()
+  if args.train:
+    args.model = 'videoprism_lvt_public_v1_base'
+
   if not torch.cuda.is_available():
     sys.exit('profile_torch_forward: needs a CUDA device')
 
@@ -64,7 +89,9 @@ def main() -> None:
   else:
     model = registry.get_model(args.model, fprop_dtype=torch.bfloat16)
     frames = 16
-  if args.quantize:
+  if args.train:
+    params = model.init(0, device=device, norm_bias_std=0.1)['params']
+  elif args.quantize:
     init = (init_lib.numpy_video_clip if model.is_clip else
             init_lib.numpy_video_classifier if model.is_classifier else
             init_lib.numpy_factorized_encoder)
@@ -86,6 +113,19 @@ def main() -> None:
                             device=device)
     text = (ids, (torch.arange(64, device=device) >= lengths).float())
   forward = lambda: model.apply(params, video, *text, impl=args.impl)
+  if args.train:
+    opt = train_lib.make_optimizer(learning_rate=1e-4, warmup_steps=1,
+                                   total_steps=100)
+    state = [train_lib.create_train_state(0, model.config, opt,
+                                          pretrained_params=params,
+                                          device=device)]
+    step = train_lib.make_train_step(model.config, opt, impl=args.impl)
+    batch = {'video': video, 'text_token_ids': text[0],
+             'text_paddings': text[1]}
+    del params
+
+    def forward():
+      state[0], _ = step(state[0], batch)
   for _ in range(2):
     forward()
   torch.cuda.synchronize()
@@ -108,11 +148,18 @@ def main() -> None:
   smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                         '--format=csv,noheader'], capture_output=True,
                        text=True, check=False).stdout.strip()
+  unit = 'train step' if args.train else 'forward'
   print(f'{smi}; {args.model}{" int8" if args.quantize else ""} '
         f'B={args.batch} impl={args.impl}: wall '
-        f'{wall_ms:.3f} ms/forward (host clock, profiler on), device '
+        f'{wall_ms:.3f} ms/{unit} (host clock, profiler on), device '
         f'{device_ms:.3f} ms, '
         f'idle share {max(0.0, 1.0 - device_ms / wall_ms):.3f}')
+  if args.train:
+    kinds = collections.Counter()
+    for name, (_, ms) in per_kernel.items():
+      kinds[_kind(name)] += ms / args.iters
+    for kind, ms in kinds.most_common():
+      print(f'  {ms:9.3f} ms  {100.0 * ms / device_ms:5.1f} %  {kind}')
   ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])
   for name, (calls, ms) in ranked[:args.top]:
     print(f'  {ms / args.iters:9.3f} ms  {100.0 * ms / args.iters / device_ms:5.1f} %'

@@ -10,7 +10,9 @@ Tolerances are those of ``videoprism_tpu_torch.ops.kernels.cases``.  The
 kernel cases are grouped, a few tests to a family of shapes, each running
 every case and reporting every one that disagrees: the suite's item count
 is kept low on purpose (ROADMAP.md, "the item-count trap"): the int8
-kernels (K9-K12b) run inside ``test_dispatch_counts_and_refusals``.
+kernels (K9-K12b) run inside ``test_dispatch_counts_and_refusals``, the
+tiny models and the tiny CLIP train step inside
+``test_tiny_models_kernel_path_matches_reference``.
 """
 
 import dataclasses
@@ -33,6 +35,8 @@ from videoprism_tpu_torch.ops import masks as mask_lib
 from videoprism_tpu_torch.ops import transformer as transformer_lib
 from videoprism_tpu_torch.ops.kernels import _lib
 from videoprism_tpu_torch.ops.kernels import cases as cases_lib
+from videoprism_tpu_torch.train import objectives
+from videoprism_tpu_torch.train import train_step as train_lib
 
 pytestmark = pytest.mark.gpu
 
@@ -50,11 +54,15 @@ def _check_all(cases):
   assert not bad, bad
 
 
-def test_kernels_at_the_encoder_and_clip_shapes(device):
-  """K1-K6 at the shapes of two requests: the base encoder's spatial and
+def test_kernels_at_the_paths_and_ragged_shapes(device):
+  """K1-K7 at the shapes of two requests: the base encoder's spatial and
   temporal attention (cap 50 and 0, with and without paddings), its FFN
   (gelu and relu), the boundaries; the text tower's causal T = 65; K5 at
-  the auxiliary encoder's [2, 12, 4096, 64]; K6 at 8192, 130 and 1 rows."""
+  the auxiliary encoder's [2, 12, 4096, 64]; K6 at 8192, 130 and 1 rows;
+  K7 at the lvt base train step's shapes.  Then ragged shapes: K1 at
+  lengths off the tiles (4, 40, 100) and at head dims 88 (giant's, padded
+  to 96 inside), 128 and 8; K2 with ragged rows; K5 and K7 with query and
+  key counts off the tiles and other head widths."""
   cases = []
   # Two clips of 16 frames x 256 tokens, and the text tower's 65 tokens.
   for b, t, causal in ((32, 256, False), (512, 16, False), (2, 65, True)):
@@ -77,14 +85,8 @@ def test_kernels_at_the_encoder_and_clip_shapes(device):
       cases.append(cases_lib.layer_norm_case(rows, 768,
                                              direct_scale=direct_scale,
                                              device=device))
-  _check_all(cases)
+  cases += cases_lib.flash_bwd_path_cases(device)
 
-
-def test_kernels_at_ragged_shapes(device):
-  """K1 at lengths off the tiles (4, 40, 100) and at head dims 88 (giant's,
-  padded to 96 inside), 128 and 8; K2 with ragged rows; K5 with query and
-  key counts off the tiles and other head widths."""
-  cases = []
   for t in (4, 40, 100):
     for cap in (50.0, 0.0):
       cases.append(cases_lib.attention_case(6, t, 128, 2, 64, cap=cap,
@@ -98,6 +100,15 @@ def test_kernels_at_ragged_shapes(device):
   for t, s, h in ((1, 1, 64), (100, 200, 32), (130, 70, 128), (256, 128, 16)):
     for mask in ('keys', 'rows'):
       cases.append(cases_lib.flash_case(3, 2, t, s, h, cap=50.0, mask=mask,
+                                        device=device))
+  for t, s, h in ((1, 1, 64), (100, 200, 32), (130, 70, 64), (65, 65, 48)):
+    for mask in ('keys', 'rows'):
+      for cap in (50.0, 0.0):
+        cases.append(cases_lib.flash_bwd_case(3, 2, t, s, h, cap=cap,
+                                              mask=mask, with_ctx=True,
+                                              device=device))
+  cases.append(cases_lib.flash_bwd_case(3, 2, 130, 70, 16, cap=50.0,
+                                        mask='keys', with_ctx=False,
                                         device=device))
   _check_all(cases)
 
@@ -151,6 +162,32 @@ def test_dispatch_counts_and_refusals(device):
     flash.fn(q, q, q, flash.args[3], **flash.kwargs)
   with pytest.raises(ValueError, match='bfloat16'):
     ln.fn(ln.args[0].float(), *ln.args[1:], **ln.kwargs)
+  # K7 counts its launches (and those that emit the context) and refuses
+  # giant's head dim, naming the limit.
+  bwd = cases_lib.flash_bwd_case(1, 2, 128, 128, 64, cap=50.0, mask='none',
+                                 with_ctx=True, device=device)
+  _lib.reset_launches()
+  bwd.fn(*bwd.args, **bwd.kwargs)
+  bwd.fn(*bwd.args, **bwd.kwargs, impl='reference')
+  torch.cuda.synchronize()
+  assert dict(_lib.LAUNCHES) == {'fused_attention_bwd': 1}
+  assert _lib.CTX_LAUNCHES['fused_attention_bwd'] == 1
+  q88 = torch.zeros((1, 2, 128, 88), dtype=torch.bfloat16, device=device)
+  with pytest.raises(ValueError, match='head dim 88.*at most 64'):
+    bwd.fn(q88, q88, q88, bwd.args[3], q88, **bwd.kwargs)
+  # Under autograd on the card a block runs its kernel forward and K7 in
+  # its backward, never a twin.
+  att = cases_lib.attention_case(2, 40, 128, 2, 64, cap=50.0, padded=True,
+                                 device=device)
+  args = [a.clone().requires_grad_(a.dtype == torch.bfloat16)
+          for a in att.args]
+  _lib.reset_launches()
+  att.fn(*args, **att.kwargs).float().sum().backward()
+  torch.cuda.synchronize()
+  assert dict(_lib.LAUNCHES) == {'fused_attention_block': 1,
+                                 'fused_attention_bwd': 1}
+  assert all(a.grad is not None and bool(torch.isfinite(a.grad).all())
+             for a in args if a.requires_grad)
   # K8a and K8b count their own launches and refuse chunks that do not
   # divide the heads or leave F-slices off 16-byte rows.
   att = cases_lib.attention_case(2, 16, 128, 4, 32, cap=50.0, padded=False,
@@ -247,7 +284,7 @@ def test_attention_capacity_gate(device):
   assert _min_cosine(got, want) >= 0.999
 
 
-def test_tiny_encoder_kernel_path_matches_reference(device):
+def _tiny_encoder(device):
   cfg = fe.FactorizedEncoderConfig(
       patch_size=6, pos_emb_shape=(4, 4, 4), model_dim=128,
       num_spatial_layers=2, num_temporal_layers=2, num_heads=2, mlp_dim=256,
@@ -271,14 +308,18 @@ def test_tiny_encoder_kernel_path_matches_reference(device):
   assert cos.min().item() >= 0.999, cos.min().item()
 
 
-def test_tiny_clip_kernel_path_matches_reference(device):
-  """A tiny CLIP config whose auxiliary encoder sees 1152 tokens, so K5
-  and K6 run beside K1-K4, against the plain path on the same card."""
-  cfg = clip_lib.VideoCLIPConfig(
+def _tiny_clip_config(dtype=torch.bfloat16):
+  return clip_lib.VideoCLIPConfig(
       patch_size=6, pos_emb_shape=(8, 12, 12), num_spatial_layers=1,
       num_temporal_layers=1, mlp_dim=128, num_auxiliary_layers=2,
       vocabulary_size=128, num_unimodal_layers=2, model_dim=64, num_heads=2,
-      atten_logit_cap=50.0, dtype=torch.bfloat16)
+      atten_logit_cap=50.0, dtype=dtype)
+
+
+def _tiny_clip(device):
+  """A tiny CLIP config whose auxiliary encoder sees 1152 tokens, so K5
+  and K6 run beside K1-K4, against the plain path on the same card."""
+  cfg = _tiny_clip_config()
   params = prepare_for_kernels(init_lib.init_video_clip(
       0, cfg, device=device, dtype=torch.bfloat16, norm_bias_std=0.1))
   gen = torch.Generator(device=device).manual_seed(0)
@@ -302,7 +343,7 @@ def test_tiny_clip_kernel_path_matches_reference(device):
     assert cos.min().item() >= 0.999, cos.min().item()
 
 
-def test_tiny_classifier_kernel_path_matches_reference(device):
+def _tiny_classifier(device):
   """A tiny classifier (width 64: the FFN chained in 2 F-slices) against
   the plain path on the same card."""
   cfg = vc_lib.VideoClassifierConfig(
@@ -324,6 +365,55 @@ def test_tiny_classifier_kernel_path_matches_reference(device):
   want, _ = vc_lib.apply(params, video, cfg, impl='reference')
   assert got.shape == (2, 10) and bool(torch.isfinite(got).all())
   assert _min_cosine(got, want) >= 0.999
+
+
+def _tiny_train(device):
+  """The tiny CLIP config's loss and gradients (fp32 master weights): the
+  kernel path in bf16, K7 in every attention backward, against the plain
+  path in fp32 (autograd through the twins) on the same card: the cosine
+  of the whole gradient at 0.999 or, where the bf16 plain path itself
+  falls below that, no farther from the fp32 path than
+  ``cases.FP32_ERR_RATIO`` times it (``chip_smoke.py [train]``'s gate)."""
+  cfg = _tiny_clip_config()
+  params = init_lib.init_video_clip(0, cfg, device=device, norm_bias_std=0.1)
+  trainable = (params, objectives.init_temperature_state('infonce',
+                                                         device=device))
+  gen = torch.Generator(device=device).manual_seed(1)
+  ids = torch.randint(0, 128, (2, 16), generator=gen, device=device)
+  batch = {'video': torch.randn((2, 8, 72, 72, 3), generator=gen,
+                                device=device),
+           'text_token_ids': ids,
+           'text_paddings': (torch.arange(16, device=device) >= torch.tensor(
+               [[16], [5]], device=device)).float()}
+  vg = train_lib.value_and_grad(train_lib.clip_loss_fn)
+  _lib.reset_launches()
+  (loss, _), grads = vg(trainable, batch, cfg)
+  torch.cuda.synchronize()
+  # Spatial, temporal and 2 text layers with the context, 2 auxiliary
+  # layers (K5) without.
+  assert _lib.LAUNCHES['fused_attention_bwd'] == 6
+  assert _lib.CTX_LAUNCHES['fused_attention_bwd'] == 4
+  (loss32, _), grads32 = vg(trainable, batch,
+                            _tiny_clip_config(torch.float32),
+                            impl='reference')
+  (_, _), grads16 = vg(trainable, batch, cfg, impl='reference')
+  assert abs(loss.item() - loss32.item()) <= 1e-2
+  flat = lambda g: torch.cat([x.double().flatten() for x in
+                              train_lib.tree_leaves(g)])
+  cos = lambda a: torch.nn.functional.cosine_similarity(
+      flat(a), flat(grads32), dim=0).item()
+  got, twin = cos(grads), cos(grads16)
+  assert got >= 0.999 or 1.0 - got <= cases_lib.FP32_ERR_RATIO * (
+      1.0 - twin), (got, twin)
+
+
+def test_tiny_models_kernel_path_matches_reference(device):
+  """Tiny encoder, CLIP model, classifier and CLIP train step through the
+  kernels against the plain path on the same card."""
+  _tiny_encoder(device)
+  _tiny_clip(device)
+  _tiny_classifier(device)
+  _tiny_train(device)
 
 
 def _int8_params(tree, device):

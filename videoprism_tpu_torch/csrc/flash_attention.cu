@@ -28,7 +28,7 @@
 // A operand of the P @ V product in registers, so nothing of the [T, S]
 // block touches shared or device memory.  Ragged T and S are zero-filled
 // and left out of the softmax.
-#include "common.cuh"
+#include "mma_sync.cuh"
 
 namespace vp {
 namespace {
@@ -36,39 +36,6 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kBlockM = 16 * kWarps;  // query rows per block
 constexpr int kBlockN = 64;           // keys per streamed tile
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8, and receives row l / 4, columns 2 * (l % 4)
-// and +1 of each matrix (transposed with .trans).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// c[16x8] += a[16x16] @ b[16x8], bf16 operands, fp32 accumulators.
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  bf162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
 
 template <int HT>
 constexpr size_t flash_smem_bytes() {
@@ -79,11 +46,8 @@ constexpr size_t flash_smem_bytes() {
 // each of K and V [kBlockN, LD] (LD = H + 8 bf16: rows 16-byte aligned and
 // ldmatrix free of bank conflicts).
 //
-// Fragment layout of mma.sync m16n8k16 (g = lane / 4, c = lane % 4): the
-// accumulator holds rows g and g + 8 at columns 2c and 2c + 1; so logit
-// element e of n-tile j is (row g + 8 * (e / 2), key 8j + 2c + e % 2).  Two
-// neighbouring n-tiles of logits are exactly the A operand (16 rows x 16
-// keys) of the P @ V product.
+// Fragment layouts: mma_sync.cuh.  Logits of a 16 x 64 tile stay in
+// mma.sync accumulators and become the A operand of the P @ V product.
 template <int HT>
 __global__ void __launch_bounds__(kWarps * 32)
     flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -153,28 +117,11 @@ __global__ void __launch_bounds__(kWarps * 32)
   cp_async_wait<0>();
   __syncthreads();
   uint32_t qf[HT][4];
-#pragma unroll
-  for (int kk = 0; kk < HT; ++kk)
-    ldsm_x4(qf[kk], Qs + (warp * 16 + lane % 16) * LD + kk * 16 + (lane / 16) * 8);
+  load_rows<HT>(qf, Qs + warp * 16 * LD, LD, lane);
 
   float sc[8][4];  // logits of one 16 x 64 tile
   auto logits = [&](int stage) {
-    const bf16* kb = Ks + stage * kBlockN * LD;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HT; ++kk) {
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        uint32_t kf[4];
-        const int m = lane / 8;
-        ldsm_x4(kf, kb + (p * 16 + lane % 8 + 8 * (m >> 1)) * LD + kk * 16 + 8 * (m & 1));
-        mma16816(sc[2 * p], qf[kk], kf[0], kf[1]);
-        mma16816(sc[2 * p + 1], qf[kk], kf[2], kf[3]);
-      }
-    }
+    tile_logits<HT>(sc, qf, Ks + stage * kBlockN * LD, LD, lane);
   };
   // Unnormalised weight of logit l at key s of row half h (kNegInf-masked
   // with no cap, relative to the row max mx).
@@ -258,17 +205,7 @@ __global__ void __launch_bounds__(kWarps * 32)
       }
     }
   });
-
-#pragma unroll
-  for (int i = 0; i < 2 * HT; ++i) {
-    const int col = i * 8 + c2;
-    if (row0 < T)
-      *reinterpret_cast<bf162*>(oh + static_cast<size_t>(row0) * H + col) =
-          __floats2bfloat162_rn(acc[i][0], acc[i][1]);
-    if (row1 < T)
-      *reinterpret_cast<bf162*>(oh + static_cast<size_t>(row1) * H + col) =
-          __floats2bfloat162_rn(acc[i][2], acc[i][3]);
-  }
+  store_rows<HT>(oh, acc, row0, T, lane);
 }
 
 template <int HT>

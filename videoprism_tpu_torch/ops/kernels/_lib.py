@@ -13,7 +13,10 @@ Dispatch rule of every kernel wrapper (:func:`use_kernel`): ``impl='auto'``
 runs the kernel for a CUDA tensor and the plain PyTorch twin for a CPU
 tensor; ``impl='kernel'`` on a CPU tensor raises; ``impl='reference'`` runs
 the twin anywhere.  On CUDA nothing falls back: a shape or dtype the kernel
-does not take raises ``ValueError``.
+does not take raises ``ValueError``.  Under autograd (:func:`needs_grad`)
+the forward wrappers run through a ``torch.autograd.Function`` whose
+forward follows that rule and whose backward is PyTorch code with the
+flash backward (K7) dispatched by the same rule.
 """
 
 from __future__ import annotations
@@ -43,6 +46,8 @@ LAUNCHES: collections.Counter = collections.Counter()
 # The same launches of the int8 chunked blocks (K9, K10) by chunk count:
 # (wrapper, chunks) -> launches.
 CHUNK_LAUNCHES: collections.Counter = collections.Counter()
+# The launches of the flash backward (K7) that also emit the context.
+CTX_LAUNCHES: collections.Counter = collections.Counter()
 
 # Argument codes of the C entry points: p pointer (or the stream), i int,
 # f float.  The stream is appended by launch().
@@ -53,6 +58,7 @@ _SIGNATURES = {
     'vp_temporal_to_output': 'pppp' 'iiii' 'f' 'p',
     'vp_layer_norm': 'pppp' 'iii' 'f' 'p',
     'vp_flash_attention': 'ppppp' 'iiiiiii' 'f' 'p',
+    'vp_flash_attention_bwd': 'pppppppppp' 'iiiiiii' 'f' 'p',
     'vp_int8_ffn_block': 'p' * 17 + 'iiiii' 'f' 'p',
     'vp_int8_attention_block': 'p' * 24 + 'i' * 8 + 'fff' 'p',
     'vp_int8_layer_block': 'p' * 37 + 'i' * 11 + 'fff' 'p',
@@ -65,6 +71,7 @@ _CTYPES = {'p': ctypes.c_void_p, 'i': ctypes.c_int, 'f': ctypes.c_float}
 def reset_launches() -> None:
   LAUNCHES.clear()
   CHUNK_LAUNCHES.clear()
+  CTX_LAUNCHES.clear()
 
 
 def use_kernel(impl: str, x: torch.Tensor) -> bool:
@@ -79,6 +86,16 @@ def use_kernel(impl: str, x: torch.Tensor) -> bool:
     raise ValueError(
         f"impl='kernel' needs CUDA tensors; got a tensor on {x.device}")
   return False
+
+
+def needs_grad(impl: str, *tensors: torch.Tensor | None) -> bool:
+  """Whether a wrapper runs through its ``torch.autograd.Function`` (the
+  kernel, or on the CPU its twin, forward; the hand-written backward):
+  autograd is recording and an operand requires grad.  ``impl='reference'``
+  never does: autograd then differentiates the plain twin itself, an
+  independent check of the hand-written backwards."""
+  return (impl != 'reference' and torch.is_grad_enabled()
+          and any(t is not None and t.requires_grad for t in tensors))
 
 
 def check(cond: bool, msg: str) -> None:

@@ -7,6 +7,11 @@ On a CUDA tensor each runs ``csrc/ln_rows.cu``; on a CPU tensor, or with
 ``impl='reference'``, the plain twin.  Both round like the TPU kernel
 (``_st_kernel``): LN in fp32, plus the pos-emb in fp32, one cast.  The
 kernels take bf16 and raise on fp32 CUDA tensors.
+
+Under autograd each runs through a ``torch.autograd.Function`` whose
+backward is the VJP of the reference's composed twin (``_composed_st``,
+``_composed_ts``): the regroup undone, the fp32 LN backward and, for K3,
+the pos-emb's cotangent summed over the B*N sequences.
 """
 
 from __future__ import annotations
@@ -14,7 +19,10 @@ from __future__ import annotations
 import torch
 
 from videoprism_tpu_torch.ops.kernels import _lib
-from videoprism_tpu_torch.ops.kernels.transformer_block import ln_f32
+from videoprism_tpu_torch.ops.kernels.transformer_block import (
+    ln_backward,
+    ln_f32,
+)
 
 
 def _reference_spatial_to_temporal(features, ln_scale, ln_bias, pos, *, b, t,
@@ -40,6 +48,16 @@ def spatial_to_temporal(
   if bt != b * t or tuple(pos.shape) != (t, d):
     raise ValueError(f'features {tuple(features.shape)} / pos_emb '
                      f'{tuple(pos_emb.shape)} do not match b={b}, t={t}')
+  if _lib.needs_grad(impl, features, ln_scale, ln_bias, pos_emb):
+    return _SpatialToTemporal.apply(b, t, epsilon, impl, features, ln_scale,
+                                    ln_bias, pos_emb)
+  return _spatial_to_temporal(features, ln_scale, ln_bias, pos, b, t,
+                              epsilon, impl)
+
+
+def _spatial_to_temporal(features, ln_scale, ln_bias, pos, b, t, epsilon,
+                         impl):
+  _, n, d = features.shape
   if not _lib.use_kernel(impl, features):
     return _reference_spatial_to_temporal(features, ln_scale, ln_bias, pos,
                                           b=b, t=t, epsilon=epsilon)
@@ -54,6 +72,31 @@ def spatial_to_temporal(
               features, ln_scale, ln_bias, pos, out, b, t, n, d, epsilon)
   _lib.LAUNCHES['spatial_to_temporal'] += 1
   return out
+
+
+class _SpatialToTemporal(torch.autograd.Function):
+  """K3 forward; the VJP of ``_composed_st`` backward."""
+
+  @staticmethod
+  def forward(ctx, b, t, epsilon, impl, features, ln_scale, ln_bias,
+              pos_emb):
+    ctx.save_for_backward(features, ln_scale)
+    ctx.static = (b, t, epsilon, pos_emb.shape, pos_emb.dtype)
+    pos = pos_emb.reshape(-1, pos_emb.shape[-1])
+    return _spatial_to_temporal(features, ln_scale, ln_bias, pos, b, t,
+                                epsilon, impl)
+
+  @staticmethod
+  def backward(ctx, g):
+    features, ln_scale = ctx.saved_tensors
+    b, t, epsilon, pos_shape, pos_dtype = ctx.static
+    _, n, d = features.shape
+    dpos = g.float().sum(0)                                  # [T, D]
+    dy = g.reshape(b, n, t, d).transpose(1, 2).reshape(b * t, n, d)
+    dx, dscale, dbias = ln_backward(features, ln_scale, dy, epsilon)
+    return (None, None, None, None, dx.to(features.dtype),
+            dscale.to(ln_scale.dtype), dbias.to(ln_scale.dtype),
+            dpos.reshape(pos_shape).to(pos_dtype))
 
 
 def _reference_temporal_to_output(features, ln_scale, ln_bias, *, b, n,
@@ -76,6 +119,15 @@ def temporal_to_output(
   if bn != b * n:
     raise ValueError(
         f'features {tuple(features.shape)} do not match b={b}, n={n}')
+  if _lib.needs_grad(impl, features, ln_scale, ln_bias):
+    return _TemporalToOutput.apply(b, n, epsilon, impl, features, ln_scale,
+                                   ln_bias)
+  return _temporal_to_output(features, ln_scale, ln_bias, b, n, epsilon,
+                             impl)
+
+
+def _temporal_to_output(features, ln_scale, ln_bias, b, n, epsilon, impl):
+  _, t, d = features.shape
   if not _lib.use_kernel(impl, features):
     return _reference_temporal_to_output(features, ln_scale, ln_bias, b=b,
                                          n=n, epsilon=epsilon)
@@ -89,3 +141,24 @@ def temporal_to_output(
               features, ln_scale, ln_bias, out, b, n, t, d, epsilon)
   _lib.LAUNCHES['temporal_to_output'] += 1
   return out
+
+
+class _TemporalToOutput(torch.autograd.Function):
+  """K4 forward; the VJP of ``_composed_ts`` backward."""
+
+  @staticmethod
+  def forward(ctx, b, n, epsilon, impl, features, ln_scale, ln_bias):
+    ctx.save_for_backward(features, ln_scale)
+    ctx.static = (b, n, epsilon)
+    return _temporal_to_output(features, ln_scale, ln_bias, b, n, epsilon,
+                               impl)
+
+  @staticmethod
+  def backward(ctx, g):
+    features, ln_scale = ctx.saved_tensors
+    b, n, epsilon = ctx.static
+    _, t, d = features.shape
+    dy = g.reshape(b, t, n, d).transpose(1, 2).reshape(b * n, t, d)
+    dx, dscale, dbias = ln_backward(features, ln_scale, dy, epsilon)
+    return (None, None, None, None, dx.to(features.dtype),
+            dscale.to(ln_scale.dtype), dbias.to(ln_scale.dtype))

@@ -22,7 +22,13 @@ casts twice (the half-layer output x1, then the output), and an ulp of x1
 reaches the output unchanged even where the FFN's sum cancels it to a
 small value, so its ``rtol`` is taken of the row's largest output instead
 of each element (measured on the card at the base width: kernel and twin
-2 ulps apart at |x1| ~ 5, both 0.0677 from the fp32 twin).  Their weights
+2 ulps apart at |x1| ~ 5, both 0.0677 from the fp32 twin).  K7 (the flash
+backward) casts dl to bf16 before its dq and dk products, and dl reaches
+~10 where dP = dO V^T does: where kernel and twin round one dl to
+neighbouring bf16 values, dq or dk moves by that ulp times |k| or |q|
+whatever its own value, so K7 takes the same row-scaled ``rtol`` on each
+of its outputs (measured on the card at the temporal shape: an output
+0.0625 from the twin, both 0.161 from the fp32 twin).  Their weights
 are seeded floats quantized as ``quantization`` does.
 
 The chunked kernels (K8a, K8b) differ from K1/K2 only by one bf16 cast of
@@ -150,6 +156,42 @@ def flash_case(b: int, heads: int, t: int, s: int, head_dim: int, *,
   return Case('fused_attention',
               f'[{b},{heads},{t},{head_dim}] S={s} cap={cap:g} mask={mask}',
               flash.fused_attention, args, dict(logit_cap=cap))
+
+
+def flash_bwd_case(b: int, heads: int, t: int, s: int, head_dim: int, *,
+                   cap: float, mask: str, with_ctx: bool, device,
+                   seed: int = 0) -> Case:
+  """K7 on :func:`flash_case`'s inputs and masks, with a seeded output
+  cotangent dO [b, heads, t, head_dim]."""
+  fwd = flash_case(b, heads, t, s, head_dim, cap=cap, mask=mask,
+                   device=device, seed=seed)
+  do = np.random.default_rng(seed + 1).standard_normal((b, heads, t, head_dim))
+  label = fwd.label + (' with ctx' if with_ctx else '')
+  return Case('fused_attention_bwd', label, flash.fused_attention_bwd,
+              (*fwd.args, _tensor(do, device)),
+              dict(logit_cap=cap, with_ctx=with_ctx))
+
+
+def flash_bwd_path_cases(device, *, batch: int = 2) -> list[Case]:
+  """K7 at the lvt base train step's shapes for ``batch`` clips: the
+  auxiliary encoder's (no ctx, cap 50), the spatial and temporal stacks'
+  and the causal text tower's (with ctx); a fully masked query row (a
+  fully padded sequence); no cap."""
+  kw = dict(head_dim=64, device=device)
+  return [
+      flash_bwd_case(batch, 12, 4096, 4096, cap=50.0, mask='none',
+                     with_ctx=False, **kw),
+      flash_bwd_case(16 * batch, 12, 256, 256, cap=50.0, mask='none',
+                     with_ctx=True, **kw),
+      flash_bwd_case(256 * batch, 12, 16, 16, cap=50.0, mask='none',
+                     with_ctx=True, **kw),
+      flash_bwd_case(batch, 12, 65, 65, cap=50.0, mask='rows',
+                     with_ctx=True, **kw),
+      flash_bwd_case(batch, 12, 256, 256, cap=50.0, mask='keys',
+                     with_ctx=True, **kw),
+      flash_bwd_case(16 * batch, 12, 256, 256, cap=0.0, mask='keys',
+                     with_ctx=True, **kw),
+  ]
 
 
 def layer_norm_case(rows: int, d: int, *, direct_scale: bool, device,
@@ -531,6 +573,12 @@ def bound(case: Case) -> tuple[float, str]:
     b, n, t, h = q.shape
     out_bytes = q.numel() * q.element_size()
     ops_s = 4 * b * n * t * k.shape[2] * h / PEAK_BF16_FLOPS
+  elif case.kernel == 'fused_attention_bwd':
+    q, k = args[0], args[1]
+    return flash_backward_bound(*q.shape[:3], k.shape[2], q.shape[3],
+                                mask_rows=args[3].shape[1],
+                                mask_batch=args[3].shape[0],
+                                with_ctx=kw['with_ctx'])
   elif case.kernel.startswith('int8_'):
     out_bytes, ops_s = _int8_work(case)
   else:   # row LayerNorms: K3, K4, K6
@@ -543,25 +591,28 @@ def bound(case: Case) -> tuple[float, str]:
 
 
 def flash_backward_bound(b: int, n: int, t: int, s: int, h: int, *,
-                         mask_rows: int = 1, itemsize: int = 2
+                         mask_rows: int = 1, mask_batch: int | None = None,
+                         with_ctx: bool = False, itemsize: int = 2
                          ) -> tuple[float, str]:
-  """(ms, 'bytes' | 'operations') of K7, the flash backward (not ported
-  yet), by :func:`bound`'s rule from its shapes alone: the recomputed
-  logits, dP = dO V^T, dq, dk and dv, five products of 2*b*n*t*s*h FLOPs
-  (the reference's own count, ``flash_attention.py`` ``flops``) at the
-  bf16 peak; q, k, v, dO and the fp32 mask [b, mask_rows, s] read and dq,
-  dk, dv written once."""
-  ops_s = 5 * 2 * b * n * t * s * h / PEAK_BF16_FLOPS
-  nbytes = (4 * b * n * t * h + 3 * b * n * s * h) * itemsize
-  bytes_s = (nbytes + 4 * b * mask_rows * s) / PEAK_BYTES
+  """(ms, 'bytes' | 'operations') of K7, the flash backward, by
+  :func:`bound`'s rule from its shapes alone: the recomputed logits, dP =
+  dO V^T, dq, dk and dv (and ctx with ``with_ctx``), products of
+  2*b*n*t*s*h FLOPs each (the reference's own count, ``flash_attention.py``
+  ``flops``) at the bf16 peak; q, k, v, dO and the fp32 mask [mask_batch,
+  mask_rows, s] read and dq, dk, dv (and ctx) written once."""
+  ops_s = (5 + with_ctx) * 2 * b * n * t * s * h / PEAK_BF16_FLOPS
+  nbytes = ((4 + with_ctx) * b * n * t * h + 3 * b * n * s * h) * itemsize
+  mask_bytes = 4 * (b if mask_batch is None else mask_batch) * mask_rows * s
+  bytes_s = (nbytes + mask_bytes) / PEAK_BYTES
   return 1e3 * max(bytes_s, ops_s), ('bytes' if bytes_s >= ops_s
                                      else 'operations')
 
 
 def _joined(out) -> torch.Tensor:
-  """A kernel's output in fp32; K12a's q, k, v side by side."""
+  """A kernel's output in fp32; K12a's q, k, v and K7's (ctx,) dq, dk, dv
+  flattened end to end."""
   if isinstance(out, tuple):
-    return torch.cat([o.float() for o in out], dim=-1)
+    return torch.cat([o.float().flatten() for o in out])
   return out.float()
 
 
@@ -588,20 +639,25 @@ def _int8_cast_once(case: Case) -> torch.Tensor:
 def run_case(case: Case) -> dict:
   """Kernel vs bf16 twin vs fp32 twin (and, for a chunked case, vs the
   one-chunk bf16 twin); returns the errors and a verdict."""
-  run = lambda args, impl: _joined(case.fn(*args, **case.kwargs, impl=impl))
-  out = run(case.args, 'kernel')
-  ref = run(case.args, 'reference')
+  raw = lambda args, impl: case.fn(*args, **case.kwargs, impl=impl)
+  run = lambda args, impl: _joined(raw(args, impl))
+  outs, refs = raw(case.args, 'kernel'), raw(case.args, 'reference')
+  out, ref = _joined(outs), _joined(refs)
   ref32 = run(tuple(a.float() if a.is_floating_point() else a
                     for a in case.args), 'reference')
   err = (out - ref).abs().max().item()
   err_kernel32 = (out - ref32).abs().max().item()
   err_twin32 = (ref - ref32).abs().max().item()
-  if case.kernel == 'int8_layer_block':
-    # Two casts (the half-layer output x1, then the output): an ulp of x1
-    # reaches an output whatever that output's own magnitude, so the
-    # tolerance scales with the row's largest value.
-    close = bool(((out - ref).abs() <= ATOL + RTOL * ref.abs().amax(
-        -1, keepdim=True)).all())
+  if case.kernel in ('int8_layer_block', 'fused_attention_bwd'):
+    # K11 casts twice (the half-layer output x1, then the output); K7 casts
+    # dl to bf16 before dl @ K and dl^T @ Q, with |dl| up to ~10 at these
+    # inputs.  An ulp of x1 or of dl reaches an output whatever that
+    # output's own magnitude, so the tolerance scales with the row's
+    # largest value, for each output.
+    pairs = (zip(outs, refs) if isinstance(outs, tuple)
+             else ((outs, refs),))
+    close = all(bool(((o.float() - r.float()).abs() <= ATOL + RTOL * (
+        r.float().abs().amax(-1, keepdim=True))).all()) for o, r in pairs)
   else:
     close = torch.allclose(out, ref, atol=ATOL, rtol=RTOL)
   ok = (bool(torch.isfinite(out).all()) and close

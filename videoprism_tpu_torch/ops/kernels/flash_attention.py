@@ -1,19 +1,28 @@
-"""K5: head-major soft-capped softmax attention for long sequences.
+"""K5 and K7: head-major soft-capped softmax attention for long sequences,
+and its backward.
 
 Ports ``videoprism_tpu/ops/pallas/flash_attention.py`` ``fused_attention``
-(``_attention_kernel``): q [B, N, T, H], k and v [B, N, S, H] bf16, an
-additive fp32 mask [B|1, T|1, S]; returns [B, N, T, H] in q's dtype.  On a
-CUDA tensor it runs ``csrc/flash_attention.cu`` (K and V streamed in tiles,
-the TPU kernel's exact-softmax op order kept by recomputing the logits);
-on a CPU tensor, or with ``impl='reference'``, the plain twin
-(``transformer_block.attention_core``, the head-major composed math with
-fp32 logits, masked exp and uniform fully-masked rows).
+(K5, ``_attention_kernel``) and ``fused_attention_bwd`` (K7,
+``_attention_bwd_kernel``): q [B, N, T, H], k and v [B, N, S, H] bf16, an
+additive fp32 mask [B|1, T|1, S].  On a CUDA tensor K5 runs
+``csrc/flash_attention.cu`` (K and V streamed in tiles, the TPU kernel's
+exact-softmax op order kept by recomputing the logits) and K7
+``csrc/flash_attention_bwd.cu`` (a query-major kernel for the row
+statistics, ctx and dq, a key-major one for dk and dv, probabilities
+recomputed with K5's instructions); on a CPU tensor, or with
+``impl='reference'``, the plain twins (``transformer_block.attention_core``
+and :func:`_reference_attention_bwd`).
+
+Under autograd :func:`fused_attention` runs through ``_FusedAttention``:
+K5 (or its twin) forward, K7 without ctx (or its twin) backward, a zero
+mask cotangent, as the JAX package's ``_attention_vjp``.
 
 :func:`supports` is the JAX package's dispatch gate: ``multi_head_attention
 (impl='flash')`` takes the kernel for those shapes and the composed path
-for others, as the JAX package does.  The kernel itself takes any T and S.
-The packed small-sequence route of the JAX package
-(``_packed_small_seq_attention``) is TPU tiling and is not ported.
+for others, as the JAX package does.  The kernels themselves take any T
+and S.  The packed small-sequence route of the JAX package
+(``_packed_small_seq_attention``) and the backward's VMEM fit
+(``_bwd_blocks`` / ``bwd_supported``) are TPU tiling and are not ported.
 """
 
 from __future__ import annotations
@@ -21,12 +30,71 @@ from __future__ import annotations
 import torch
 
 from videoprism_tpu_torch.ops.kernels import _lib
-from videoprism_tpu_torch.ops.kernels.transformer_block import attention_core
+from videoprism_tpu_torch.ops.kernels.transformer_block import (
+    MASK_THRESHOLD,
+    NEG_INF,
+    attention_core,
+)
+
+# Rows per block of K7's kernels; its row statistics are kept for T rounded
+# up to a multiple of this.
+BWD_TILE = 64
+# Head dims K7 takes: multiples of 16 up to this (its fp32 dk / dv, or dq /
+# ctx, accumulators live in registers).
+BWD_MAX_HEAD_DIM = 64
 
 
 def supports(t: int, s: int) -> bool:
   """The JAX gate: whether ``impl='flash'`` runs the kernel at (T, S)."""
   return t % 128 == 0 and s % 128 == 0 and s >= 128
+
+
+def _check_operands(q, k, v, mask, *, max_head_dim: int, kernel: str):
+  b, n, t, h = q.shape
+  s = k.shape[2]
+  _lib.check(k.shape == (b, n, s, h) and v.shape == (b, n, s, h),
+             f'k {tuple(k.shape)} / v {tuple(v.shape)} do not match q '
+             f'{tuple(q.shape)}')
+  _lib.check(mask.ndim == 3 and mask.shape[0] in (1, b)
+             and mask.shape[1] in (1, t) and mask.shape[2] == s,
+             f'mask {tuple(mask.shape)} does not fit q {tuple(q.shape)} and '
+             f'S={s}')
+  _lib.check(h % 16 == 0 and 16 <= h <= max_head_dim,
+             f'head dim {h}: {kernel} takes multiples of 16, at most '
+             f'{max_head_dim}')
+  _lib.check(t > 0 and s > 0, 'empty query or key sequence')
+
+
+def _fused_attention(q, k, v, mask, logit_cap, impl):
+  if not _lib.use_kernel(impl, q):
+    return attention_core(q, k, v, mask, logit_cap=float(logit_cap),
+                          dtype=q.dtype)
+  b, n, t, h = q.shape
+  _lib.check_tensors(q.device, q=q, k=k, v=v, mask=mask)
+  _check_operands(q, k, v, mask, max_head_dim=128, kernel='K5')
+  out = torch.empty_like(q)
+  _lib.launch('vp_flash_attention', q.device, q, k, v, mask, out, b, n, t,
+              k.shape[2], h, mask.shape[0], mask.shape[1], float(logit_cap))
+  _lib.LAUNCHES['fused_attention'] += 1
+  return out
+
+
+class _FusedAttention(torch.autograd.Function):
+  """K5 forward, K7 backward (``_attention_vjp``); saves its inputs."""
+
+  @staticmethod
+  def forward(ctx, logit_cap, impl, q, k, v, mask):
+    ctx.save_for_backward(q, k, v, mask)
+    ctx.logit_cap, ctx.impl = logit_cap, impl
+    return _fused_attention(q, k, v, mask, logit_cap, impl)
+
+  @staticmethod
+  def backward(ctx, g):
+    q, k, v, mask = ctx.saved_tensors
+    dq, dk, dv = fused_attention_bwd(
+        q, k, v, mask, g.to(q.dtype).contiguous(), logit_cap=ctx.logit_cap,
+        impl=ctx.impl)
+    return None, None, dq, dk, dv, None
 
 
 def fused_attention(
@@ -39,24 +107,77 @@ def fused_attention(
     impl: str = 'auto',
 ) -> torch.Tensor:
   """Head-major capped attention -> [B, N, T, H] in q's dtype."""
+  if _lib.needs_grad(impl, q, k, v):
+    return _FusedAttention.apply(float(logit_cap), impl, q, k, v, mask)
+  return _fused_attention(q, k, v, mask, logit_cap, impl)
+
+
+def _reference_attention_bwd(q, k, v, mask, do, *, logit_cap, with_ctx):
+  """Plain twin of K7: ``_attention_bwd_kernel``'s math over the whole
+  [T, S] in fp32, with its casts to q's dtype."""
+  dtype = q.dtype
+  s = k.shape[2]
+  qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+  logits = qf @ kf.transpose(-1, -2)                       # [B, N, T, S]
+  ok = (mask >= MASK_THRESHOLD)[:, None]                   # [B|1, 1, T|1, S]
+  if logit_cap > 0.0:
+    tanh_t = torch.tanh(logits * (1.0 / logit_cap))
+    unnorm = torch.where(ok, torch.exp(logit_cap * tanh_t), 0.0)
+    denom = unnorm.sum(-1, keepdim=True)
+    unnorm = torch.where(denom == 0.0, 1.0, unnorm)
+    denom = torch.where(denom == 0.0, float(s), denom)
+  else:
+    lm = torch.where(ok, logits, NEG_INF)
+    unnorm = torch.exp(lm - lm.amax(-1, keepdim=True))
+    denom = unnorm.sum(-1, keepdim=True)
+  probs = unnorm / denom
+  probs_c = probs.to(dtype).float()
+  dv = (probs_c.transpose(-1, -2) @ dof).to(dtype)
+  dp = dof @ vf.transpose(-1, -2)
+  row_dot = (dp * probs).sum(-1, keepdim=True)
+  dl = torch.where(ok, probs * (dp - row_dot), 0.0)
+  if logit_cap > 0.0:
+    dl = dl * (1.0 - tanh_t * tanh_t)
+  dl_c = dl.to(dtype).float()
+  dq = (dl_c @ kf).to(dtype)
+  dk = (dl_c.transpose(-1, -2) @ qf).to(dtype)
+  if with_ctx:
+    return (probs_c @ vf).to(dtype), dq, dk, dv
+  return dq, dk, dv
+
+
+def fused_attention_bwd(
+    q: torch.Tensor,      # [B, N, T, H] (as given to the forward)
+    k: torch.Tensor,      # [B, N, S, H]
+    v: torch.Tensor,      # [B, N, S, H]
+    mask: torch.Tensor,   # [B|1, T|1, S] additive fp32
+    do: torch.Tensor,     # [B, N, T, H] output cotangent
+    *,
+    logit_cap: float = 0.0,
+    with_ctx: bool = False,
+    impl: str = 'auto',
+) -> tuple[torch.Tensor, ...]:
+  """dq, dk, dv of :func:`fused_attention` -> (dq, dk, dv), or with
+  ``with_ctx`` (ctx, dq, dk, dv), ctx being the forward's output recomputed
+  in the same pass (so a block backward never replays the forward)."""
   if not _lib.use_kernel(impl, q):
-    return attention_core(q, k, v, mask, logit_cap=float(logit_cap),
-                          dtype=q.dtype)
+    return _reference_attention_bwd(q, k, v, mask, do,
+                                    logit_cap=float(logit_cap),
+                                    with_ctx=with_ctx)
   b, n, t, h = q.shape
   s = k.shape[2]
-  _lib.check_tensors(q.device, q=q, k=k, v=v, mask=mask)
-  _lib.check(k.shape == (b, n, s, h) and v.shape == (b, n, s, h),
-             f'k {tuple(k.shape)} / v {tuple(v.shape)} do not match q '
-             f'{tuple(q.shape)}')
-  _lib.check(mask.ndim == 3 and mask.shape[0] in (1, b)
-             and mask.shape[1] in (1, t) and mask.shape[2] == s,
-             f'mask {tuple(mask.shape)} does not fit q {tuple(q.shape)} and '
-             f'S={s}')
-  _lib.check(h % 16 == 0 and 16 <= h <= 128,
-             f'head dim {h} must be a multiple of 16, at most 128')
-  _lib.check(t > 0 and s > 0, 'empty query or key sequence')
-  out = torch.empty_like(q)
-  _lib.launch('vp_flash_attention', q.device, q, k, v, mask, out, b, n, t, s,
-              h, mask.shape[0], mask.shape[1], float(logit_cap))
-  _lib.LAUNCHES['fused_attention'] += 1
-  return out
+  _lib.check_tensors(q.device, q=q, k=k, v=v, mask=mask, do=do)
+  _check_operands(q, k, v, mask, max_head_dim=BWD_MAX_HEAD_DIM,
+                  kernel='the flash backward (K7)')
+  _lib.check(do.shape == q.shape,
+             f'do {tuple(do.shape)} does not match q {tuple(q.shape)}')
+  t_pad = -(-t // BWD_TILE) * BWD_TILE
+  stats = torch.empty((3, b * n, t_pad), dtype=torch.float32, device=q.device)
+  ctx = torch.empty_like(q) if with_ctx else None
+  dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+  _lib.launch('vp_flash_attention_bwd', q.device, q, k, v, mask, do, ctx, dq,
+              dk, dv, stats, b, n, t, s, h, mask.shape[0], mask.shape[1],
+              float(logit_cap))
+  _lib.LAUNCHES['fused_attention_bwd'] += 1
+  _lib.CTX_LAUNCHES['fused_attention_bwd'] += with_ctx
+  return (ctx, dq, dk, dv) if with_ctx else (dq, dk, dv)

@@ -22,6 +22,13 @@ to the activation dtype at the same points as the kernels:
       + out_{c-1}, each in fp32 -> dtype.  (The TPU recomputes LN and the
       head group's q|k|v per chunk; those are the same bits every time.)
 
+Under autograd each wrapper runs through a ``torch.autograd.Function``
+that saves only its inputs: the attention blocks' backward
+(:func:`attention_block_bwd`) is one flash-backward (K7) call with the
+context plus plain products, the FFN blocks' (:func:`ffn_block_bwd`) the
+explicit VJP of the reference's composed twin; both ignore ``chunks``, as
+the reference's ``attention_block_vjp`` and ``ffn_block_vjp`` do.
+
 GELU is the exact erf form (the TPU kernel's erf polynomial exists only
 because Mosaic has no erf).  The kernels take bf16 (the served dtype) and
 raise on fp32 CUDA tensors; fp32 on the card runs with
@@ -51,6 +58,25 @@ def ln_f32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
   normed = (xf - mean) * torch.rsqrt(var + epsilon)
   scale = scale.float() if direct_scale else scale.float() + 1.0
   return normed * scale + bias.float()
+
+
+def ln_backward(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                epsilon: float, direct_scale: bool = False
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+  """The VJP of :func:`ln_f32` (statistics recomputed in fp32) at the
+  output cotangent ``g`` -> (dx, dscale, dbias), all fp32; dx has x's
+  shape, dscale and dbias are [D]."""
+  d = x.shape[-1]
+  xf = x.float().reshape(-1, d)
+  gf = g.float().reshape(-1, d)
+  mean = xf.mean(-1, keepdim=True)
+  var = (xf - mean).square().mean(-1, keepdim=True)
+  inv_sigma = torch.rsqrt(var + epsilon)
+  normed = (xf - mean) * inv_sigma
+  dnormed = gf * (scale.float() if direct_scale else scale.float() + 1.0)
+  dx = inv_sigma * (dnormed - dnormed.mean(-1, keepdim=True)
+                    - normed * (dnormed * normed).mean(-1, keepdim=True))
+  return dx.reshape(x.shape), (gf * normed).sum(0), gf.sum(0)
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -115,22 +141,6 @@ def _reference_attention_ctx(x, mask, ln_scale, ln_bias, wqkv, bqkv, *,
   return ctx.transpose(1, 2).reshape(b, t, nh)
 
 
-def _reference_attention_block(x, mask, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
-                               **static):
-  """Plain twin of K1 (same op order and rounding points)."""
-  ctx = _reference_attention_ctx(x, mask, ln_scale, ln_bias, wqkv, bqkv,
-                                 **static)
-  return _residual_chain(ctx, wo, bo, x, 1)
-
-
-def _reference_attention_block_chunked(x, mask, ln_scale, ln_bias, wqkv, bqkv,
-                                       wo, bo, *, chunks, **static):
-  """Plain twin of K8a (same op order and rounding points)."""
-  ctx = _reference_attention_ctx(x, mask, ln_scale, ln_bias, wqkv, bqkv,
-                                 **static)
-  return _residual_chain(ctx, wo, bo, x, chunks)
-
-
 def check_partial_out(partial_out: bool) -> None:
   if partial_out:
     raise NotImplementedError(
@@ -172,6 +182,82 @@ def _launch_attention(x, mask, ln_scale, ln_bias, wqkv, bqkv, wo, bo, *,
   return out
 
 
+def _attention_block_forward(args, static, chunks, impl):
+  """K1 (``chunks=None``) or K8a over ``chunks`` head groups, or their
+  twin on the CPU / with ``impl='reference'``."""
+  if not _lib.use_kernel(impl, args[0]):
+    ctx = _reference_attention_ctx(*args[:6], **static)
+    return _residual_chain(ctx, args[6], args[7], args[0], chunks or 1)
+  out = _launch_attention(*args, chunks=chunks or 1, **static)
+  _lib.LAUNCHES['fused_attention_block' if chunks is None
+                else 'fused_attention_block_chunked'] += 1
+  return out
+
+
+def attention_block_bwd(args, g, *, num_heads, dim_per_head, logit_cap,
+                        epsilon, query_scale, impl='auto'):
+  """The backward of K1 and K8a at the output cotangent ``g`` [B, T, D]:
+  the port of ``_attention_block_bwd`` (``transformer_block.py``) to the
+  fused weight layout.  LN and q|k|v are recomputed with plain products;
+  one K7 call (``with_ctx=True``, dispatched by ``impl``) gives the
+  context, dq, dk and dv, so the forward kernel is never replayed; then
+  dWo = ctx^T g, the query scale on dq, dWqkv, dbqkv and the fp32 LN
+  backward plus the residual.  Products run in x's dtype, as the
+  reference's XLA einsums do.  Returns the cotangents of ``args`` (None for
+  the mask), each in its operand's dtype."""
+  from videoprism_tpu_torch.ops.kernels import flash_attention as flash
+
+  x, mask, ln_scale, ln_bias, wqkv, bqkv, wo, bo = args
+  b, t, d = x.shape
+  n, hd = num_heads, dim_per_head
+  nh = n * hd
+  h = ln_f32(x, ln_scale, ln_bias, epsilon).to(x.dtype).reshape(b * t, d)
+  qkv = torch.addmm(bqkv, h, wqkv)                          # [B*T, 3*N*H]
+  heads = lambda a: a.reshape(b, t, n, hd).transpose(1, 2).contiguous()
+  rows = lambda a: a.transpose(1, 2).reshape(b * t, nh)
+  q, k, v = qkv.split(nh, dim=-1)
+  g2 = g.reshape(b * t, d)
+  dctx = heads(g2 @ wo.t())
+  ctx, dq, dk, dv = flash.fused_attention_bwd(
+      heads(q * query_scale), heads(k), heads(v), mask, dctx,
+      logit_cap=logit_cap, with_ctx=True, impl=impl)
+  dwo = rows(ctx).t() @ g2
+  dqkv = torch.cat([rows(dq) * query_scale, rows(dk), rows(dv)], dim=-1)
+  dwqkv = h.t() @ dqkv
+  dh = dqkv @ wqkv.t()
+  dx, dln_scale, dln_bias = ln_backward(x, ln_scale, dh, epsilon)
+  dx = dx + g.float()                                       # residual
+  cast = lambda val, ref: val.to(ref.dtype)
+  return (cast(dx, x), None, cast(dln_scale, ln_scale),
+          cast(dln_bias, ln_bias), cast(dwqkv, wqkv),
+          cast(dqkv.float().sum(0), bqkv), cast(dwo, wo),
+          cast(g2.float().sum(0), bo))
+
+
+class _AttentionBlock(torch.autograd.Function):
+  """K1 / K8a forward, :func:`attention_block_bwd` backward (whatever
+  ``chunks``, as the reference's ``attention_block_vjp``); saves only its
+  inputs."""
+
+  @staticmethod
+  def forward(ctx, static, chunks, impl, *args):
+    ctx.save_for_backward(*args)
+    ctx.static, ctx.impl = static, impl
+    return _attention_block_forward(args, static, chunks, impl)
+
+  @staticmethod
+  def backward(ctx, g):
+    grads = attention_block_bwd(ctx.saved_tensors, g.contiguous(),
+                                **ctx.static, impl=ctx.impl)
+    return (None, None, None, *grads)
+
+
+def _attention_block(args, static, chunks, impl):
+  if _lib.needs_grad(impl, *args):
+    return _AttentionBlock.apply(static, chunks, impl, *args)
+  return _attention_block_forward(args, static, chunks, impl)
+
+
 def fused_attention_block(
     x: torch.Tensor,          # [B, T, D]
     mask: torch.Tensor,       # [B|1, T|1, T] additive fp32
@@ -191,19 +277,14 @@ def fused_attention_block(
 
   The JAX signature with the q/k/v weights fused along the output axis
   (``Wqkv = [Wq | Wk | Wv]``), as :func:`io.checkpoints.prepare_for_kernels`
-  builds them once at load time.
+  builds them once at load time.  Differentiable (``_AttentionBlock``).
   """
   check_partial_out(partial_out)
   static = dict(num_heads=num_heads, dim_per_head=dim_per_head,
                 logit_cap=float(logit_cap), epsilon=epsilon,
                 query_scale=float(query_scale))
-  if not _lib.use_kernel(impl, x):
-    return _reference_attention_block(
-        x, mask, ln_scale, ln_bias, wqkv, bqkv, wo, bo, **static)
-  out = _launch_attention(x, mask, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
-                          chunks=1, **static)
-  _lib.LAUNCHES['fused_attention_block'] += 1
-  return out
+  return _attention_block((x, mask, ln_scale, ln_bias, wqkv, bqkv, wo, bo),
+                          static, None, impl)
 
 
 def fused_attention_block_chunked(
@@ -231,14 +312,8 @@ def fused_attention_block_chunked(
                 query_scale=float(query_scale))
   if chunks < 1 or num_heads % chunks:
     raise ValueError(f'{chunks} chunks do not divide {num_heads} heads')
-  if not _lib.use_kernel(impl, x):
-    return _reference_attention_block_chunked(
-        x, mask, ln_scale, ln_bias, wqkv, bqkv, wo, bo, chunks=chunks,
-        **static)
-  out = _launch_attention(x, mask, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
-                          chunks=chunks, **static)
-  _lib.LAUNCHES['fused_attention_block_chunked'] += 1
-  return out
+  return _attention_block((x, mask, ln_scale, ln_bias, wqkv, bqkv, wo, bo),
+                          static, chunks, impl)
 
 
 def _reference_ffn_hidden(x, paddings, ln_scale, ln_bias, w1, b1, *,
@@ -289,6 +364,69 @@ def _launch_ffn(x, paddings, ln_scale, ln_bias, w1, b1, w2, b2, *, chunks,
   return out
 
 
+def _ffn_block_forward(args, static, chunks, impl):
+  """K2 (``chunks=None``) or K8b over ``chunks`` F-slices, or their twin
+  on the CPU / with ``impl='reference'``."""
+  if not _lib.use_kernel(impl, args[0]):
+    return _reference_ffn_block(*args, chunks=chunks or 1, **static)
+  out = _launch_ffn(*args, chunks=chunks or 1, **static)
+  _lib.LAUNCHES['fused_ffn_block' if chunks is None
+                else 'fused_ffn_block_chunked'] += 1
+  return out
+
+
+def ffn_block_bwd(args, g, *, activation, epsilon):
+  """The backward of K2 and K8b at the output cotangent ``g`` [rows, D]:
+  the explicit VJP of the reference's ``_composed_ffn_block`` (what its
+  ``ffn_block_vjp`` differentiates, whatever the chunk count).  LN is
+  recomputed in fp32; the padding ``keep`` scales both products' paths;
+  the activation's derivative is the exact-erf GELU's or the ReLU's; the
+  products run in x's dtype where the forward's values are in it.  Returns
+  the cotangents of ``args`` (None for the paddings)."""
+  x, paddings, ln_scale, ln_bias, w1, b1, w2, b2 = args
+  keep = 1.0 - paddings.float()                              # [rows, 1]
+  h = ln_f32(x, ln_scale, ln_bias, epsilon).to(x.dtype)
+  pre = torch.addmm(b1, h, w1).float()                       # [rows, F]
+  act = F.gelu(pre) if activation == 'gelu' else torch.relu(pre)
+  a = (act * keep).to(x.dtype)
+  gk = g.float() * keep             # cotangent of a @ w2 + b2
+  gk_c = gk.to(x.dtype)
+  dpre = (gk_c @ w2.t()).float() * keep
+  if activation == 'gelu':    # times Phi(pre) + pre * phi(pre), one pass
+    dpre = torch.ops.aten.gelu_backward(dpre, pre, approximate='none')
+  else:
+    dpre = torch.where(pre > 0.0, dpre, 0.0)
+  dpre_c = dpre.to(x.dtype)
+  dx, dln_scale, dln_bias = ln_backward(x, ln_scale, dpre_c @ w1.t(), epsilon)
+  dx = dx + g.float()                                        # residual
+  cast = lambda val, ref: val.to(ref.dtype)
+  return (cast(dx, x), None, cast(dln_scale, ln_scale),
+          cast(dln_bias, ln_bias), cast(h.t() @ dpre_c, w1),
+          cast(dpre.sum(0), b1), cast(a.t() @ gk_c, w2), cast(gk.sum(0), b2))
+
+
+class _FfnBlock(torch.autograd.Function):
+  """K2 / K8b forward, :func:`ffn_block_bwd` backward; saves only its
+  inputs."""
+
+  @staticmethod
+  def forward(ctx, static, chunks, impl, *args):
+    ctx.save_for_backward(*args)
+    ctx.static = static
+    return _ffn_block_forward(args, static, chunks, impl)
+
+  @staticmethod
+  def backward(ctx, g):
+    return (None, None, None,
+            *ffn_block_bwd(ctx.saved_tensors, g.contiguous(), **ctx.static))
+
+
+def _ffn_block(args, static, chunks, impl):
+  if _lib.needs_grad(impl, *args):
+    return _FfnBlock.apply(static, chunks, impl, *args)
+  return _ffn_block_forward(args, static, chunks, impl)
+
+
 def fused_ffn_block(
     x: torch.Tensor,                 # [rows, D]
     paddings: torch.Tensor,          # [rows, 1] (1.0 = padded row)
@@ -301,18 +439,13 @@ def fused_ffn_block(
     partial_out: bool = False,
     impl: str = 'auto',
 ) -> torch.Tensor:
-  """Pre-LN FFN half-layer: ``x + keep * FFN(LN(x))`` -> [rows, D]."""
+  """Pre-LN FFN half-layer: ``x + keep * FFN(LN(x))`` -> [rows, D].
+  Differentiable (``_FfnBlock``)."""
   check_partial_out(partial_out)
   if activation not in ACTIVATIONS:
     raise ValueError(f'activation must be gelu or relu, got {activation!r}')
-  static = dict(activation=activation, epsilon=epsilon)
-  if not _lib.use_kernel(impl, x):
-    return _reference_ffn_block(x, paddings, ln_scale, ln_bias, w1, b1, w2,
-                                b2, **static)
-  out = _launch_ffn(x, paddings, ln_scale, ln_bias, w1, b1, w2, b2, chunks=1,
-                    **static)
-  _lib.LAUNCHES['fused_ffn_block'] += 1
-  return out
+  return _ffn_block((x, paddings, ln_scale, ln_bias, w1, b1, w2, b2),
+                    dict(activation=activation, epsilon=epsilon), None, impl)
 
 
 def fused_ffn_block_chunked(
@@ -333,16 +466,11 @@ def fused_ffn_block_chunked(
   check_partial_out(partial_out)
   if activation not in ACTIVATIONS:
     raise ValueError(f'activation must be gelu or relu, got {activation!r}')
-  static = dict(activation=activation, epsilon=epsilon)
   if chunks < 1 or w1.shape[1] % chunks:
     raise ValueError(f'{chunks} chunks do not divide F={w1.shape[1]}')
-  if not _lib.use_kernel(impl, x):
-    return _reference_ffn_block(x, paddings, ln_scale, ln_bias, w1, b1, w2,
-                                b2, chunks=chunks, **static)
-  out = _launch_ffn(x, paddings, ln_scale, ln_bias, w1, b1, w2, b2,
-                    chunks=chunks, **static)
-  _lib.LAUNCHES['fused_ffn_block_chunked'] += 1
-  return out
+  return _ffn_block((x, paddings, ln_scale, ln_bias, w1, b1, w2, b2),
+                    dict(activation=activation, epsilon=epsilon), chunks,
+                    impl)
 
 
 # ---------------------------------------------------------------------------

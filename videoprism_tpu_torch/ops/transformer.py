@@ -312,7 +312,10 @@ def transformer_layer(params: Params, inputs: torch.Tensor,
   """One pre-norm self-attention + FFN layer on [B, T, D].
 
   ``params['self_attention']['fused']`` (from ``prepare_for_kernels``) holds
-  the fused projection weights; without it they are built on every call.
+  the fused projection weights; without it, or when the weights require
+  grad (training), they are built from the leaves on every call.  Under
+  autograd every kernel wrapper runs through its ``torch.autograd.Function``
+  (``ops/kernels/``); an int8 tree raises ``ValueError`` there.
   The halves follow the module docstring.  Where the reference runs its
   composed FFN because no chunking fits its VMEM, the port keeps K2, which
   takes any row count.  On the card, a sequence that K1's attention core
@@ -322,6 +325,10 @@ def transformer_layer(params: Params, inputs: torch.Tensor,
   _check_policy(cfg)
   dtype = cfg.dtype
   if quantization.is_quantized(params):
+    if torch.is_grad_enabled() and inputs.requires_grad:
+      raise ValueError(
+          'an int8 (quantized) tree serves only: the W8A8 route has no '
+          'backward, as the reference refuses train=True on it')
     out = _int8_layer(params, inputs, paddings, atten_mask, cfg, impl)
     if out is not None:
       return out
@@ -346,7 +353,11 @@ def transformer_layer(params: Params, inputs: torch.Tensor,
   cast = lambda a: basic.cast_floating(a, dtype)
   on_card = _lib.use_kernel(impl, inputs)
   if fused_attention_supported(t, atten_mask, h if on_card else None):
-    fused = attn.get('fused') or fused_attention_weights(attn, dtype)
+    fused = attn.get('fused')
+    if fused is None or attn['query']['w'].requires_grad:
+      # Under training the cached fused copy is stale after the first
+      # update and no gradient reaches it: build it from the leaves.
+      fused = fused_attention_weights(attn, dtype)
     kw = dict(num_heads=n, dim_per_head=h, logit_cap=cfg.logit_cap,
               epsilon=1e-6, query_scale=h ** -0.5, impl=impl)
     if attn_chunks:
