@@ -8,7 +8,15 @@ result):
   2. build        nvcc builds videoprism_tpu_torch/csrc for sm_90a, one
                   process per source, all at once; build time, each
                   kernel's registers, shared memory and spills, and the
-                  longest sequence K1's attention core holds per head dim;
+                  longest sequence K1's attention core takes per head dim
+                  (it streams K and V: no limit below the route's 1024);
+     gemm         the wgmma + TMA GEMM of K1, K2, K8a and K8b alone at the
+                  base encoder's four products (QKV, output projection,
+                  W1, W2) with their epilogues, at B = 8 and B = 1 clips
+                  (M = 32768, 4096): its time (CUDA events) and TFLOP/s,
+                  its max error against the fp32 product with the same
+                  epilogue, and torch.matmul's time on the same operands
+                  (a yardstick the port never calls);
   3. kernels      every kernel against its plain twin at the shapes of the
                   encoder, CLIP, classifier and int8 paths for two requests
                   (K9 and K10 also at 2 chunks, K11 at (2, 2)) and of the
@@ -16,17 +24,22 @@ result):
                   at the lvt base train step's for two clips (no ctx at
                   the auxiliary shape, ctx at the spatial, temporal and
                   causal text shapes, fully masked rows, cap 0), and
-                  K1 at its capacity (ops/kernels/cases.py tolerances;
+                  K1 at the route's longest T = 1024 at H = 64 and 88
+                  (ops/kernels/cases.py tolerances;
                   K8a, K8b and chunked K9/K10 also against their one-chunk
                   twins); each
                   kernel's time per call (CUDA events) and on the device
                   (profiler) beside its twin's, its bound and a library
-                  call's (int8 kernels: torch._int_mm over their int8
+                  call's (K6: F.layer_norm, by events and by the
+                  profiler; int8 kernels: torch._int_mm over their int8
                   products; K7: SDPA's uncapped forward + backward, a
                   yardstick);
-  4. gate         a layer at T = 1024 (past K1's capacity at H = 64) takes
-                  K6 + K5 and agrees with the plain path; at giant's head
-                  dim a sequence past K1's capacity raises ValueError;
+  4. gate         layers at T = 1024 run through K1's attention core on
+                  the route the reference's chunk rule picks (the base
+                  width: K8a over 4 head groups; giant's width, H = 88:
+                  K1) and agree with the plain path; at T = 1032 (past
+                  the fused route) giant's head dim raises ValueError
+                  naming K5's head-dim limit;
   5. model        get_model('videoprism_public_v1_base') in bf16 with seeded
                   random weights answers three requests (1, 2 and 8 clips of
                   16x288x288x3) through the kernels: [B, 4096, 768], finite,
@@ -137,6 +150,7 @@ from videoprism_tpu_torch.ops import masks as mask_lib
 from videoprism_tpu_torch.ops import transformer as transformer_lib
 from videoprism_tpu_torch.ops.kernels import _lib
 from videoprism_tpu_torch.ops.kernels import cases as cases_lib
+from videoprism_tpu_torch.ops.kernels import transformer_block as tb
 from videoprism_tpu_torch.train import objectives
 from videoprism_tpu_torch.train import train_step as train_lib
 
@@ -364,8 +378,60 @@ def phase_build() -> None:
             f'{m.group(2) or 0} B, {spills}')
       kernel = None
   for h in (64, 88):
-    print(f'[build] K1 attention core capacity at H={h}: T <= '
-          f'{_lib.max_attention_t(h)}')
+    cap = _lib.max_attention_t(h)
+    check(cap >= transformer_lib.MAX_FUSED_ATTENTION_T,
+          f'K1 attention core takes T <= {cap} at H={h}')
+    print(f'[build] K1 attention core at H={h}: streams K and V, takes every '
+          f'T up to the route\'s {transformer_lib.MAX_FUSED_ATTENTION_T} '
+          f'(reports {cap})')
+
+
+# The base encoder's four products per layer: (name, N, K, epilogue).
+GEMM_PRODUCTS = (('QKV', 2304, 768, 'qkv'), ('out', 768, 768, 'residual'),
+                 ('W1', 3072, 768, 'act_keep'), ('W2', 768, 3072, 'residual'))
+
+
+def phase_gemm(device) -> None:
+  """The product stage of K1/K2/K8a/K8b alone at the base encoder's
+  products, with their epilogues, against the fp32 product and beside
+  torch.matmul (a yardstick, not called by the port)."""
+  gen = torch.Generator(device=device).manual_seed(0)
+  for b in (8, 1):
+    m = b * 4096
+    for name, n, k, epilogue in GEMM_PRODUCTS:
+      a = torch.randn((m, k), generator=gen, device=device).bfloat16()
+      w = (torch.randn((k, n), generator=gen, device=device)
+           / k ** 0.5).bfloat16()
+      bias = (0.1 * torch.randn((n,), generator=gen, device=device)).bfloat16()
+      pads = (torch.rand((m, 1), generator=gen, device=device)
+              < 0.1).bfloat16()
+      res = torch.randn((m, n), generator=gen, device=device).bfloat16()
+      kw = {'qkv': dict(bias=bias, col_scale=0.125, scaled_cols=n // 3),
+            'residual': dict(bias=bias, pads=pads, residual=res),
+            'act_keep': dict(bias=bias, pads=pads, activation='gelu')}[
+                epilogue]
+      got = tb.gemm_bf16(a, w, epilogue=epilogue, **kw).float()
+      want = a.float() @ w.float() + bias.float()
+      keep = 1.0 - pads.float()
+      if epilogue == 'qkv':
+        want[:, :n // 3] *= 0.125
+      elif epilogue == 'residual':
+        want = want * keep + res.float()
+      else:
+        want = torch.nn.functional.gelu(want) * keep
+      err = (got - want).abs().max().item()
+      ok = bool(torch.allclose(got, want, atol=cases_lib.ATOL,
+                               rtol=cases_lib.RTOL))
+      ms = cuda_ms(lambda: tb.gemm_bf16(a, w, epilogue=epilogue, **kw),
+                   warmup=3, iters=20)
+      mm_ms = cuda_ms(lambda: torch.matmul(a, w), warmup=3, iters=20)
+      flops = 2.0 * m * n * k
+      print(f'[gemm] B={b} {name} [{m}, {k}] @ [{k}, {n}] ({epilogue}): '
+            f'{ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s; max err vs fp32 '
+            f'{err:.3g} {"ok" if ok else "FAIL"}; torch.matmul {mm_ms:.4f} '
+            f'ms, {flops / mm_ms / 1e9:.1f} TFLOP/s')
+      check(ok, f'GEMM {name} at B={b} disagrees with the fp32 product')
+      del a, w, res, got, want
 
 
 def _library_layer_norm(case):
@@ -465,13 +531,16 @@ def phase_kernels(device) -> dict[str, dict]:
     ms = cuda_ms(lambda: run('kernel'), warmup=3, iters=20)
     dev_ms = device_ms(lambda: run('kernel'), iters=10)
     plain_ms = cuda_ms(lambda: run('reference'), warmup=2, iters=10)
-    library_ms = None
+    library_ms = library_dev_ms = None
     if case.kernel == 'fused_layer_norm_2d':
       library_ms = cuda_ms(_library_layer_norm(case), warmup=3, iters=20)
+      library_dev_ms = device_ms(_library_layer_norm(case), iters=10)
     elif case.kernel.startswith('int8_'):
       library_ms = cuda_ms(cases_lib.int8_library(case), warmup=3, iters=20)
     bound_ms, bound_by = cases_lib.bound(case)
     library = 'none' if library_ms is None else f'{library_ms:.4f} ms'
+    if library_dev_ms is not None:
+      library += f' (device {library_dev_ms:.4f} ms)'
     if case.kernel.startswith('int8_'):
       library = f'torch._int_mm over its products {library}'
     print(f'[kernels] time {case.kernel} {case.label}: kernel {ms:.4f} ms '
@@ -480,7 +549,9 @@ def phase_kernels(device) -> dict[str, dict]:
     rec = record[case.kernel]
     for key, value in (('ms', ms), ('device_ms', dev_ms),
                        ('plain_ms', plain_ms),
-                       ('library_ms', library_ms), ('bound_ms', bound_ms),
+                       ('library_ms', library_ms),
+                       ('library_device_ms', library_dev_ms),
+                       ('bound_ms', bound_ms),
                        ('bound_by', bound_by)):
       rec.setdefault(key, value)
   # Yardstick only, not the same function: SDPA has no tanh cap, so it is
@@ -670,56 +741,58 @@ def phase_clip_golden(device) -> None:
 
 
 def phase_gate(device) -> None:
-  """K1's capacity on the card (ROADMAP fault 3.1)."""
-  cfg = transformer_lib.TransformerLayerConfig(
-      num_layers=1, hidden_dim=3072, num_heads=12, activation='gelu',
-      enable_per_dim_scale=False, logit_cap=50.0, dtype=torch.bfloat16)
+  """Sequences K1's core used to refuse (ROADMAP fault 3.1): at T = 1024
+  a base-width and a giant-width layer run through it on the route the
+  reference's chunk rule picks; past the fused route, giant's head dim
+  raises naming K5's limit."""
   init = init_lib._Init(0, 0.1)
-  params = prepare_for_kernels(params_from_numpy(
-      {'layer': init.layer(768, cfg)}, device=device,
-      dtype=torch.bfloat16))['layer']
   gen = torch.Generator(device=device).manual_seed(0)
-  x = torch.randn((2, 1024, 768), generator=gen, device=device,
+  for b, d, heads, f in ((2, 768, 12, 3072), (1, 1408, 16, 6144)):
+    cfg = transformer_lib.TransformerLayerConfig(
+        num_layers=1, hidden_dim=f, num_heads=heads, activation='gelu',
+        enable_per_dim_scale=False, logit_cap=50.0, dtype=torch.bfloat16)
+    params = prepare_for_kernels(params_from_numpy(
+        {'layer': init.layer(d, cfg)}, device=device,
+        dtype=torch.bfloat16))['layer']
+    t = transformer_lib.MAX_FUSED_ATTENTION_T
+    x = torch.randn((b, t, d), generator=gen, device=device,
+                    dtype=torch.bfloat16)
+    pads = torch.zeros((b, t), device=device)
+    pads[-1, 900:] = 1.0
+    mask = mask_lib.attention_mask_for_fprop(x, pads)
+    attn, ffn = transformer_lib.chunk_plan(b, t, d, heads, d // heads, f, 2,
+                                           causal=False)
+    want_routes = {('fused_attention_block_chunked' if attn
+                    else 'fused_attention_block'): 1,
+                   ('fused_ffn_block_chunked' if ffn
+                    else 'fused_ffn_block'): 1}
+    _lib.reset_launches()
+    got = transformer_lib.transformer_layer(params, x, pads, mask, cfg)
+    torch.cuda.synchronize()
+    routed = {k: v for k, v in _lib.LAUNCHES.items() if v}
+    want = transformer_lib.transformer_layer(params, x, pads, mask, cfg,
+                                             impl='reference')
+    cos = cosine_per_token(got, want)
+    print(f'[gate] layer at [{b}, {t}, {d}], H={d // heads} (chunk plan '
+          f'{attn}, {ffn}): launches {routed}, min per-token cosine vs the '
+          f'plain path {cos:.6f}')
+    check(routed == want_routes, f'T={t} routed to {routed}, not '
+          f'{want_routes}')
+    check(cos >= MIN_COSINE, f'T={t} layer cosine {cos} < {MIN_COSINE}')
+  # Past the fused route at giant's head dim: K5 takes multiples of 16.
+  t += 8
+  x = torch.randn((1, t, 1408), generator=gen, device=device,
                   dtype=torch.bfloat16)
-  pads = torch.zeros((2, 1024), device=device)
-  pads[1, 900:] = 1.0
-  mask = mask_lib.attention_mask_for_fprop(x, pads)
-  _lib.reset_launches()
-  got = transformer_lib.transformer_layer(params, x, pads, mask, cfg)
-  torch.cuda.synchronize()
-  routed = {k: v for k, v in _lib.LAUNCHES.items() if v}
-  want = transformer_lib.transformer_layer(params, x, pads, mask, cfg,
-                                           impl='reference')
-  cos = cosine_per_token(got, want)
-  print(f'[gate] layer at [2, 1024, 768], H=64 (K1 holds T <= '
-        f'{_lib.max_attention_t(64)}): launches {routed}, min per-token '
-        f'cosine vs the plain path {cos:.6f}')
-  check(routed == {'fused_layer_norm_2d': 1, 'fused_attention': 1,
-                   'fused_ffn_block': 1}, f'T=1024 routed to {routed}')
-  check(cos >= MIN_COSINE, f'T=1024 layer cosine {cos} < {MIN_COSINE}')
-  # Giant's head dim: past K1's capacity nothing takes the sequence.
-  cfg = dataclasses.replace(cfg, hidden_dim=6144, num_heads=16)
-  params = prepare_for_kernels(params_from_numpy(
-      {'layer': init.layer(1408, cfg)}, device=device,
-      dtype=torch.bfloat16))['layer']
-  t = _lib.max_attention_t(88)
-  x = torch.randn((1, t + 1, 1408), generator=gen, device=device,
-                  dtype=torch.bfloat16)
-  pads = torch.zeros((1, t + 1), device=device)
-  mask = mask_lib.attention_mask_for_fprop(x, pads)
+  pads = torch.zeros((1, t), device=device)
   try:
-    transformer_lib.transformer_layer(params, x, pads, mask, cfg)
+    transformer_lib.transformer_layer(
+        params, x, pads, mask_lib.attention_mask_for_fprop(x, pads), cfg)
     raised = ''
   except ValueError as e:
     raised = str(e)
-  print(f'[gate] giant-width layer at T={t + 1}, H=88: ValueError: {raised}')
-  check(f'T <= {t}' in raised, 'no ValueError naming the limit past K1\'s '
-        'capacity at H=88')
-  out = transformer_lib.transformer_layer(params, x[:, :t], pads[:, :t],
-                                          mask[..., :t], cfg)
-  torch.cuda.synchronize()
-  check(bool(torch.isfinite(out).all()), f'non-finite layer at T={t}, H=88')
-  print(f'[gate] giant-width layer at T={t}: finite')
+  print(f'[gate] giant-width layer at T={t}, H=88: ValueError: {raised}')
+  check('multiples of 16' in raised, 'no ValueError naming K5\'s head-dim '
+        f'limit at T={t}, H=88')
 
 
 def _leaves(tree):
@@ -1327,6 +1400,7 @@ def main() -> int:
   name, smi = phase_device()
   device = torch.device('cuda', 0)
   phase_build()
+  phase_gemm(device)
   record = phase_kernels(device)
   phase_gate(device)
   model, params, encoder_launches = phase_model(device)
@@ -1374,7 +1448,8 @@ def main() -> int:
                         device_ms=rec['device_ms'],
                         plain_ms=rec['plain_ms'], bound_ms=rec['bound_ms'],
                         bound_by=rec['bound_by'],
-                        library_ms=rec['library_ms']))
+                        library_ms=rec['library_ms'],
+                        library_device_ms=rec['library_device_ms']))
   print(smi)
   print(json.dumps({'kernels': kernels}))
   print(json.dumps({'ok': True, 'device': {

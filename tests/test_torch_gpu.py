@@ -59,7 +59,9 @@ def test_kernels_at_the_paths_and_ragged_shapes(device):
   temporal attention (cap 50 and 0, with and without paddings), its FFN
   (gelu and relu), the boundaries; the text tower's causal T = 65; K5 at
   the auxiliary encoder's [2, 12, 4096, 64]; K6 at 8192, 130 and 1 rows;
-  K7 at the lvt base train step's shapes.  Then ragged shapes: K1 at
+  K7 at the lvt base train step's shapes; K2 at one B=8 product shape
+  (32768 rows) and at 1 and 130 rows; K1 at the route's longest T = 1024
+  at head dims 64 and 88, cap 50 and 0, padded.  Then ragged shapes: K1 at
   lengths off the tiles (4, 40, 100) and at head dims 88 (giant's, padded
   to 96 inside), 128 and 8; K2 with ragged rows; K5 and K7 with query and
   key counts off the tiles and other head widths."""
@@ -86,6 +88,16 @@ def test_kernels_at_the_paths_and_ragged_shapes(device):
                                              direct_scale=direct_scale,
                                              device=device))
   cases += cases_lib.flash_bwd_path_cases(device)
+  cases.append(cases_lib.ffn_case(32768, 768, 3072, activation='gelu',
+                                  padded=True, device=device))
+  for rows, padded in ((1, False), (130, True)):
+    cases.append(cases_lib.ffn_case(rows, 768, 3072, activation='gelu',
+                                    padded=padded, device=device))
+  t = transformer_lib.MAX_FUSED_ATTENTION_T
+  for d, heads, head_dim in ((768, 12, 64), cases_lib.GIANT[:3]):
+    for cap in (50.0, 0.0):
+      cases.append(cases_lib.attention_case(1, t, d, heads, head_dim, cap=cap,
+                                            padded=True, device=device))
 
   for t in (4, 40, 100):
     for cap in (50.0, 0.0):
@@ -225,47 +237,40 @@ def _min_cosine(got, want):
 
 
 def test_attention_capacity_gate(device):
-  """K1's core holds T <= 784 at H=64 and T <= 544 at H=88 (ROADMAP fault
-  3.1): K1 at those lengths agrees with its twin and one token more raises
-  ValueError naming the limit; a layer at T = 1024 (H=64) and lvt base
-  with a 4-frame clip (auxiliary T = 1024) take K6 + K5 and agree with the
-  plain path; at giant's H=88, which K5 does not take, a layer past the
-  limit raises."""
-  for case in cases_lib.capacity_cases(device):
-    _check_all([case])
-    t = case.args[0].shape[1]
-    longer = cases_lib.attention_case(
-        1, t + 1, case.args[0].shape[2], case.kwargs['num_heads'],
-        case.kwargs['dim_per_head'], cap=50.0, padded=False, device=device)
-    with pytest.raises(ValueError, match=f'T <= {t}'):
-      longer.fn(*longer.args, **longer.kwargs)
-
-  params, cfg = _layer_params(device, 128, 2, 256)
+  """K1's core streams K and V, so it takes every T up to the route's 1024
+  (ROADMAP fault 3.1, closed): K1 at T = 1024 at H = 64 and 88 agrees with
+  its twin; a base-width and a giant-width layer at T = 1024 run through
+  the core on the route the reference's chunk rule picks (K8a over 4 head
+  groups; K1) and agree with the plain path, as does lvt base with a
+  4-frame clip (auxiliary T = 1024: K8a); past the route, at T = 1032,
+  giant's head dim raises naming K5's head-dim limit."""
+  _check_all(cases_lib.capacity_cases(device))
   gen = torch.Generator(device=device).manual_seed(0)
-  x = torch.randn((2, 1024, 128), generator=gen, device=device,
-                  dtype=torch.bfloat16)
-  pads = torch.zeros((2, 1024), device=device)
-  pads[1, 900:] = 1.0
-  mask = mask_lib.attention_mask_for_fprop(x, pads)
-  _lib.reset_launches()
-  got = transformer_lib.transformer_layer(params, x, pads, mask, cfg)
-  torch.cuda.synchronize()
-  assert dict(_lib.LAUNCHES) == {'fused_layer_norm_2d': 1,
-                                 'fused_attention': 1, 'fused_ffn_block': 1}
-  want = transformer_lib.transformer_layer(params, x, pads, mask, cfg,
-                                           impl='reference')
-  assert _min_cosine(got, want) >= 0.999
+  t = transformer_lib.MAX_FUSED_ATTENTION_T
+  for b, d, heads, f, want_routes in (
+      (2, 768, 12, 3072, {'fused_attention_block_chunked': 1,
+                          'fused_ffn_block': 1}),
+      (1, 1408, 16, 6144, {'fused_attention_block': 1,
+                           'fused_ffn_block_chunked': 1})):
+    params, cfg = _layer_params(device, d, heads, f)
+    x = torch.randn((b, t, d), generator=gen, device=device,
+                    dtype=torch.bfloat16)
+    pads = torch.zeros((b, t), device=device)
+    pads[-1, 900:] = 1.0
+    mask = mask_lib.attention_mask_for_fprop(x, pads)
+    _lib.reset_launches()
+    got = transformer_lib.transformer_layer(params, x, pads, mask, cfg)
+    torch.cuda.synchronize()
+    assert dict(_lib.LAUNCHES) == want_routes
+    want = transformer_lib.transformer_layer(params, x, pads, mask, cfg,
+                                             impl='reference')
+    assert _min_cosine(got, want) >= 0.999
 
-  params, cfg = _layer_params(device, 176, 2, 256)
-  t = _lib.max_attention_t(88)
-  x = torch.zeros((1, t + 1, 176), device=device, dtype=torch.bfloat16)
-  pads = torch.zeros((1, t + 1), device=device)
+  x = torch.zeros((1, t + 8, 1408), device=device, dtype=torch.bfloat16)
+  pads = torch.zeros((1, t + 8), device=device)
   mask = mask_lib.attention_mask_for_fprop(x, pads)
   with pytest.raises(ValueError, match=f'T <= {t}.*multiples of 16'):
     transformer_lib.transformer_layer(params, x, pads, mask, cfg)
-  out = transformer_lib.transformer_layer(params, x[:, :t], pads[:, :t],
-                                          mask[..., :t], cfg)
-  assert bool(torch.isfinite(out).all())
 
   model = registry.get_model('videoprism_lvt_public_v1_base',
                              fprop_dtype=torch.bfloat16)
@@ -276,9 +281,9 @@ def test_attention_capacity_gate(device):
   got, _, _ = model.apply(params, video)
   torch.cuda.synchronize()
   assert dict(_lib.LAUNCHES) == {
-      'fused_attention_block': 16, 'fused_ffn_block': 18,
-      'spatial_to_temporal': 1, 'temporal_to_output': 1,
-      'fused_attention': 2, 'fused_layer_norm_2d': 3}
+      'fused_attention_block': 16, 'fused_attention_block_chunked': 2,
+      'fused_ffn_block': 18, 'spatial_to_temporal': 1,
+      'temporal_to_output': 1, 'fused_layer_norm_2d': 1}
   want, _, _ = model.apply(params, video, impl='reference')
   assert got.shape == (2, 768) and bool(torch.isfinite(got).all())
   assert _min_cosine(got, want) >= 0.999
@@ -426,8 +431,9 @@ def _int8_kernels_and_dispatch(device):
   """K9-K12b against their twins at ragged and chunked shapes (rows and T
   off the tiles, widths of 144, head groups of 48, F-chunks of 144 and 64)
   and at the int8 paths' shapes (the giant encoder's too); their launch
-  counts and refusals; an int8 layer past the attention core's capacity
-  (K12a + K5 + K12b at H = 64, ValueError at H = 88); a tiny int8 encoder
+  counts and refusals; an int8 layer at T = 800, H = 64 on the
+  reference's route (K10 and K9 in one chunk), and past the fused route at
+  giant's H = 88 (ValueError naming K5's limit); a tiny int8 encoder
   through K11 (F = 256) and through K10 + K9 (F = 192, which
   the reference's layer kernel refuses) and a tiny int8 CLIP through K12a
   + K5 + K12b, each against the plain path on the card."""
@@ -463,8 +469,9 @@ def _int8_kernels_and_dispatch(device):
   with pytest.raises(ValueError, match='multiple of 16'):
     ffn.fn(*ffn.args, **dict(ffn.kwargs, chunks=36))      # chunks of 8
 
-  # Past the attention core's capacity (T = 800 at H = 64) the reference's
-  # one-group K10 takes K12a + K5 + K12b, the same arithmetic.
+  # At T = 800, H = 64 (past the old core's shared-memory capacity) the
+  # layer takes the reference's route (int8_plan): K10 in one head group
+  # around K1's core, K9 in one F-chunk.
   cfg = transformer_lib.TransformerLayerConfig(
       num_layers=1, hidden_dim=256, num_heads=2, activation='gelu',
       enable_per_dim_scale=False, logit_cap=50.0, dtype=torch.bfloat16)
@@ -480,21 +487,21 @@ def _int8_kernels_and_dispatch(device):
   got = transformer_lib.transformer_layer(params, x, pads, mask, cfg)
   torch.cuda.synchronize()
   assert dict(_lib.LAUNCHES) == {
-      'int8_qkv_projection': 1, 'fused_attention': 1,
-      'int8_out_projection': 1, 'int8_ffn_block_chunked': 1}
+      'int8_attention_block_chunked': 1, 'int8_ffn_block_chunked': 1}
   want = transformer_lib.transformer_layer(params, x, pads, mask, cfg,
                                            impl='reference')
   assert _min_cosine(got, want) >= 0.999
-  # At giant's head dim no int8 route takes a sequence past the core's
-  # capacity (K5 needs H % 16 == 0): the layer raises naming the limit.
+  # Past the fused route (T = 1032) the reference's int8 route is K12a + K5
+  # + K12b, and K5 needs H % 16 == 0: at giant's head dim the layer raises
+  # naming the limit.
   cfg = dataclasses.replace(cfg, hidden_dim=6144, num_heads=16)
   params = _int8_params({'layer': init_lib._Init(0, 0.1).layer(1408, cfg)},
                         device)['layer']
-  t = _lib.max_attention_t(88) + 8
+  t = transformer_lib.MAX_FUSED_ATTENTION_T + 8
   x = torch.randn((1, t, 1408), generator=gen, device=device,
                   dtype=torch.bfloat16)
   pads = torch.zeros((1, t), device=device)
-  with pytest.raises(ValueError, match=f'T <= {t - 8}'):
+  with pytest.raises(ValueError, match='multiples of 16'):
     transformer_lib.transformer_layer(
         params, x, pads, mask_lib.attention_mask_for_fprop(x, pads), cfg)
 

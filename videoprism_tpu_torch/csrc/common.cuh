@@ -63,6 +63,21 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
   return w;
 }
 
+// Raises Kernel's dynamic shared-memory limit to `bytes` once per device:
+// the attribute persists, and setting it on every launch costs host time.
+template <auto Kernel>
+inline cudaError_t set_max_dynamic_smem(size_t bytes) {
+  static unsigned done = 0;  // one bit per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 32 && ((done >> dev) & 1u)) return cudaSuccess;
+  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess && dev < 32) done |= 1u << dev;
+  return err;
+}
+
 // ---- host launchers (each returns cudaGetLastError() after its launch) ----
 
 // Row LayerNorm with fp32 statistics, (x - mean) * rsqrt(var + eps) *
@@ -93,13 +108,10 @@ cudaError_t launch_gemm_bf16(const bf16* a, const bf16* b, const bf16* bias, con
 
 // Soft-capped softmax attention over a fused [B*T, 3*N*H] q|k|v buffer
 // (q already scaled) into ctx [B*T, N*H].  mask is an fp32 [mb, mt, T]
-// additive mask (mb in {1, B}, mt in {1, T}).
+// additive mask (mb in {1, B}, mt in {1, T}).  Any T; head_dim a multiple
+// of 8, at most 128.
 cudaError_t launch_capped_attention(const bf16* qkv, const float* mask, bf16* ctx, int batch,
                                     int T, int num_heads, int head_dim, int mask_b, int mask_t,
                                     float logit_cap, cudaStream_t stream);
-
-// Dynamic shared memory the attention kernel needs, or 0 when no
-// configuration fits the card's 227 KB per block.
-size_t capped_attention_smem_bytes(int T, int head_dim);
 
 }  // namespace vp

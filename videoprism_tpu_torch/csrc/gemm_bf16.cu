@@ -1,11 +1,12 @@
 // Tiled bf16 GEMM with fp32 accumulation and the block kernels' fused
-// epilogues.
+// epilogues, on Hopper's warpgroup MMA (wgmma) fed by the tensor memory
+// accelerator (TMA).
 //
 // Replaces the four matrix products inside K1 (_attn_block_kernel: fused
 // QKV, output projection) and K2 (_ffn_block_kernel: W1, W2) of
 // videoprism_tpu/ops/pallas/transformer_block.py, and the per-chunk output
 // products of K8a/K8b (_attn_chunk_kernel, _ffn_chunk_kernel), with their
-// epilogues:
+// epilogues, in this fp32 order:
 //   kEpiQkv      (acc + bias) * query_scale on the q columns, cast;
 //   kEpiActKeep  act(acc + b1) * keep, cast;              (exact-erf GELU)
 //   kEpiResidual (acc [+ bias]) [* keep] + residual in fp32, cast.
@@ -15,40 +16,158 @@
 //
 // Bound: tensor-core FLOPs.  At the base model's shapes (K = 768 or 3072,
 // N = 768..3072, M = B * 4096) every product does hundreds of FLOPs per byte
-// of device memory, above the card's ~295 FLOP/byte ridge.  With wmma the
-// next limit is shared-memory traffic per MMA.
-// Design: 128x128x32 block tiles, 4 warps of 64x64 each computed with
-// nvcuda::wmma 16x16x16 bf16 fragments into fp32 accumulators (8 fragment
-// loads per 16 MMAs), and a four-stage cp.async pipeline so three K-slices
-// load while one multiplies (75 KB of shared memory, two blocks per SM).
-// Shared-memory rows are padded by 16 bytes to spread banks.  Measured
-// without the epilogue on an H100 80GB HBM3 at 700 W, M = 32768: 8 warps of
-// 64x32 ran 156-191 TFLOP/s with 3-4 stages, this layout 222-246.
-// The epilogue stages each 16x16 accumulator through shared memory and
-// writes 16-byte bf16 vectors, reading bias, paddings and the residual once
-// per element: the activations between the products never make an extra
-// trip to device memory.  Ragged M, N and K edges are masked (zero-filled
-// loads, guarded stores).  wgmma/TMA, which reach the card's full rate, are
-// left to later work.
-#include <mma.h>
+// of device memory, above the card's ~295 FLOP/byte ridge; wgmma is the only
+// instruction that reaches the tensor cores' full rate.
+// Design: persistent blocks, one per SM, walking output tiles of 128 x 128,
+// 64 deep per stage.  One producer warp issues TMA loads of the A tile
+// ([128, 64], K-major) and of the B tile ([64, 128] as two boxes of
+// [64, 64], N-major: the weights stay [K, N], read by wgmma's transpose-B
+// mode) into a ring of six shared-memory stages with 128-byte swizzle,
+// completion reported to an mbarrier per stage.  Two consumer warpgroups
+// take the block's tiles in turn (ping-pong), each multiplying a whole
+// 128 x 128 tile with wgmma.mma_async m64n128k16 from shared memory into
+// fp32 registers, keeping one k-tile's products in flight while releasing
+// the stage before it: while one runs its epilogue the other multiplies,
+// and the producer runs ahead into the next tiles.  setmaxnreg moves
+// registers from the producer to the consumers.  TMA zero-fills the ragged
+// M, N and K edges (the 16-byte row pitch and alignment the wrapper checks
+// are what TMA needs), so the loop masks nothing.  The epilogue runs on the
+// accumulator registers: bias per column, keep per row, the q scale, GELU
+// and the residual read as bf16 pairs (all of a row block's loads issued
+// before use), and the output goes out as bf16 pairs once, guarded at the
+// edges.  Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py [gemm]):
+// the base encoder's four products at B = 8 with their epilogues run at
+// 269-532 TFLOP/s, the deep one (K = 3072) fastest: at K = 768 a tile's
+// twelve k-steps leave its start-up and the exact-erf GELU epilogue (W1)
+// exposed.  PERF.md says what was tried beyond this.
+// The tensor maps are encoded on the host per launch through
+// cuTensorMapEncodeTiled, reached with cudaGetDriverEntryPoint (no link
+// against libcuda).
+#include <cuda.h>
 
 #include "common.cuh"
 
 namespace vp {
 namespace {
 
-using namespace nvcuda;
+constexpr int BM = 128, BN = 128;       // output tile of one consumer warpgroup
+constexpr int BK = 64;                   // depth per stage: one 128-byte row
+constexpr int kThreads = 384;            // producer + 2 consumer warpgroups
+constexpr int kBox = BK * 128;           // bytes of one [64 rows, 64] bf16 box
+constexpr int kTileA = BM * BK * 2;      // bytes: [128, 64]
+constexpr int kStage = kTileA + BK * BN * 2;
+constexpr int kStages = 6;
+// 1 KB of slack to align the ring to the swizzle's 1024-byte period, then
+// the ring, then a full and an empty barrier per stage.
+constexpr size_t kSmem = 1024 + size_t(kStages) * kStage + 2 * kStages * 8;
 
-constexpr int BM = 128, BN = 128, BK = 32;
-constexpr int A_LD = BK + 8;   // bf16 elements per shared A row
-constexpr int B_LD = BN + 8;   // bf16 elements per shared B row
-constexpr int WARPS_N = 2;
-constexpr int WM = 64, WN = 64;
-constexpr int FM = WM / 16, FN = WN / 16;
-constexpr int kThreads = 128;
-constexpr int kStages = 4;
-constexpr int kStageElems = BM * A_LD + BK * B_LD;
-constexpr size_t kSmemBytes = sizeof(bf16) * kStages * kStageElems;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// Spins until the barrier's phase of this parity completes; traps (a
+// launch error, not a hung card) if that takes more than ~10 s.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long start = clock64();
+  uint32_t done = 0;
+  while (!done) {
+    if (clock64() - start > 20000000000LL) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+// One [box] tile of a 2-D tensor map at (inner, outer) into shared memory,
+// completing `bytes` on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int inner, int outer) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(inner), "r"(outer)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Named barrier `id` over the two consumer warpgroups (256 threads): sync
+// waits for the other warpgroup's arrival, arrive does not wait.
+__device__ __forceinline__ void consumer_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void consumer_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 128] += A[64 x 16] (K-major) @ B[16 x 128] (N-major, transposed
+// mode); the accumulator layout of lane l of warp w is that of mma.sync:
+// d[4j + 2h + e] is row 16w + l / 4 + 8h, column 8j + 2 (l % 4) + e.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a,
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t ldg_u32(const bf16* p) {
+  return __ldg(reinterpret_cast<const unsigned int*>(p));
+}
+__device__ __forceinline__ float2 bf16x2_to_float2(uint32_t w) {
+  return __bfloat1622float2(*reinterpret_cast<const bf162*>(&w));
+}
 
 __device__ __forceinline__ float activate(float v, int act) {
   if (act == kActGelu) return 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
@@ -56,115 +175,223 @@ __device__ __forceinline__ float activate(float v, int act) {
   return v;
 }
 
-__global__ void __launch_bounds__(kThreads)
-gemm_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
-                 const bf16* __restrict__ bias, const bf16* __restrict__ pads,
-                 const bf16* __restrict__ residual, bf16* __restrict__ out, int M, int N, int K,
-                 int lda, int epilogue, int act, float col_scale, int scaled_cols) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int warp_m = warp / WARPS_N, warp_n = warp % WARPS_N;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+struct Epi {
+  const bf16* bias;
+  const bf16* pads;
+  const bf16* residual;
+  bf16* out;
+  int M, N, K, epilogue, act;
+  float col_scale;
+  int scaled_cols;
+};
 
-  auto load_tile = [&](int kt, int stage) {
-    bf16* As = smem + stage * kStageElems;
-    bf16* Bs = As + BM * A_LD;
-    const int k0 = kt * BK;
-#pragma unroll
-    for (int i = 0; i < BM * BK / 8 / kThreads; ++i) {  // A: 128 rows x 4 chunks
-      int c = tid + i * kThreads;
-      int r = c / 4, col = (c % 4) * 8;
-      bool ok = (m0 + r < M) && (k0 + col < K);
-      const bf16* src = ok ? a + static_cast<size_t>(m0 + r) * lda + k0 + col : a;
-      cp_async16(As + r * A_LD + col, src, ok);
+__global__ void __launch_bounds__(kThreads, 1)
+    gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
+                     const __grid_constant__ CUtensorMap map_b, const Epi p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kStage);
+  uint64_t* empty = full + kStages;
+  const int wg = threadIdx.x / 128;
+  const int tiles_n = (p.N + BN - 1) / BN;
+  const int tiles = (p.M + BM - 1) / BM * tiles_n;
+  const int ktiles = (p.K + BK - 1) / BK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // one arrival per warp of the consuming warpgroup
     }
-#pragma unroll
-    for (int i = 0; i < BK * BN / 8 / kThreads; ++i) {  // B: 32 rows x 16 chunks
-      int c = tid + i * kThreads;
-      int r = c / 16, col = (c % 16) * 8;
-      bool ok = (k0 + r < K) && (n0 + col < N);
-      const bf16* src = ok ? b + static_cast<size_t>(k0 + r) * N + n0 + col : b;
-      cp_async16(Bs + r * B_LD + col, src, ok);
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int ktiles = (K + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < ktiles) load_tile(s, s);
-    cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // tile kt landed; everyone is done with tile kt - 1
-    const int next = kt + kStages - 1;
-    if (next < ktiles) load_tile(next, next % kStages);
-    cp_async_commit();
-    const bf16* As = smem + (kt % kStages) * kStageElems;
-    const bf16* Bs = As + BM * A_LD;
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(fa[i], As + (warp_m * WM + i * 16) * A_LD + ks, A_LD);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(fb[j], Bs + ks * B_LD + warp_n * WN + j * 16, B_LD);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-  }
-  cp_async_wait<0>();
   __syncthreads();
 
-  // Epilogue: each warp stages one 16x16 tile at a time in its own 1 KB of
-  // the (now idle) pipeline buffer; each lane finishes 8 columns of a row.
-  float* stage = reinterpret_cast<float*>(smem) + warp * 256;
-  const int r = lane / 2, c8 = (lane % 2) * 8;
-#pragma unroll
-  for (int i = 0; i < FM; ++i) {
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int row = m0 + warp_m * WM + i * 16 + r;
-      const int col = n0 + warp_n * WN + j * 16 + c8;
-      if (row < M && col < N) {
-        float v[8], bv[8] = {};
-        if (bias) unpack8(*reinterpret_cast<const uint4*>(bias + col), bv);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = stage[r * 16 + c8 + e] + bv[e];
-        const float keep = pads ? 1.f - __bfloat162float(pads[row]) : 1.f;
-        const size_t off = static_cast<size_t>(row) * N + col;
-        if (epilogue == kEpiQkv) {
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            if (col + e < scaled_cols) v[e] *= col_scale;
-        } else if (epilogue == kEpiActKeep) {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] = activate(v[e], act) * keep;
-        } else {
-          float rv[8];
-          unpack8(*reinterpret_cast<const uint4*>(residual + off), rv);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] = (pads ? v[e] * keep : v[e]) + rv[e];
+  // The block's tiles are i = 0, 1, .. (tile blockIdx.x + i * gridDim.x, =
+  // m block * tiles_n + n block); the producer loads them in order and
+  // consumer warpgroup i % 2 multiplies tile i.  Both count k-tiles across
+  // tiles in `it` (tile i's k-tile kt is it = i * ktiles + kt): use it of
+  // the ring is stage it % kStages, its (it / kStages)-th fill.
+  if (wg == 0) {  // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
+        for (int kt = 0; kt < ktiles; ++kt, ++it) {
+          const int s = it % kStages;
+          if (it >= kStages) mbar_wait(&empty[s], (it / kStages - 1) & 1);
+          unsigned char* stage = ring + s * kStage;
+          mbar_expect_tx(&full[s], kStage);
+          tma_load(stage, &map_a, &full[s], kt * BK, m0);
+          tma_load(stage + kTileA, &map_b, &full[s], n0, kt * BK);
+          tma_load(stage + kTileA + kBox, &map_b, &full[s], n0 + 64, kt * BK);
         }
-        *reinterpret_cast<uint4*>(out + off) = pack8(v);
       }
+    }
+    return;
+  }
+
+  // Consumers, ping-pong: while one warpgroup runs its tile's epilogue the
+  // other multiplies the next tile, so the tensor cores do not wait for
+  // the epilogue.  The main loops take turns in tile order (warpgroup c
+  // waits on named barrier 1 + c, which the other arrives at when its
+  // main loop is done): so a consumer never waits on a stage's barrier
+  // more than one fill ahead, where its phase parity would be ambiguous.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int cw = wg - 1;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, c2 = 2 * (lane % 4);
+  float acc[2][64];  // rows 64 * mh + 16 * warp + g (+ 8) of the tile
+  for (int i = cw, tile = blockIdx.x + cw * gridDim.x; tile < tiles;
+       i += 2, tile += 2 * gridDim.x) {
+    const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
+#pragma unroll
+    for (int mh = 0; mh < 2; ++mh)
+#pragma unroll
+      for (int e = 0; e < 64; ++e) acc[mh][e] = 0.f;
+
+    if (i > 0) consumer_sync(1 + cw);
+    for (int kt = 0, it = i * ktiles; kt < ktiles; ++kt, ++it) {
+      const int s = it % kStages;
+      mbar_wait(&full[s], (it / kStages) & 1);
+      // A: 128 rows of 128 bytes, 8-row groups 1024 bytes apart; a 16-deep
+      // step is 32 bytes along the row.  B: two [64 K rows, 64 N] boxes of
+      // 8 KB side by side (LBO, the next 64 columns), 8-row groups 1024
+      // bytes apart (SBO); a 16-deep step is 16 rows.
+      const uint32_t a_base = smem_u32(ring + s * kStage);
+      const uint32_t b_base = a_base + kTileA;
+#pragma unroll
+      for (int mh = 0; mh < 2; ++mh) fence_acc(acc[mh]);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < BK / 16; ++k) {
+        const uint64_t db = sw128_desc(b_base + 2048 * k, kBox, 1024);
+#pragma unroll
+        for (int mh = 0; mh < 2; ++mh)
+          wgmma_m64n128k16(acc[mh], sw128_desc(a_base + mh * 64 * 128 + 32 * k, 16, 1024), db);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int mh = 0; mh < 2; ++mh) fence_acc(acc[mh]);
+      wgmma_wait<1>();  // the previous k-tile is multiplied: release its stage
       __syncwarp();
+      if (kt > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % kStages]);
+    }
+    if (tile + gridDim.x < tiles) consumer_arrive(2 - cw);  // tile i + 1 may start
+    wgmma_wait<0>();
+#pragma unroll
+    for (int mh = 0; mh < 2; ++mh) fence_acc(acc[mh]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[((i + 1) * ktiles - 1) % kStages]);
+
+    // The epilogue, 64 rows at a time: every load it needs there (bias
+    // pairs, the rows' keep and residual pairs) is issued before any is
+    // used, so their latencies overlap.
+    uint32_t bias[16];
+#pragma unroll
+    for (int jn = 0; jn < 16; ++jn) {
+      const int col = n0 + 8 * jn + c2;  // N is even: col + 1 < N too
+      bias[jn] = p.bias && col < p.N ? ldg_u32(p.bias + col) : 0u;
+    }
+#pragma unroll
+    for (int mh = 0; mh < 2; ++mh) {
+      int rows[2];
+      float keep[2];
+      uint32_t res[2][16];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        rows[h] = m0 + 64 * mh + 16 * warp + g + 8 * h;
+        keep[h] = p.pads && rows[h] < p.M ? 1.f - __bfloat162float(p.pads[rows[h]]) : 1.f;
+#pragma unroll
+        for (int jn = 0; jn < 16; ++jn) {
+          const int col = n0 + 8 * jn + c2;
+          res[h][jn] = p.epilogue == kEpiResidual && rows[h] < p.M && col < p.N
+                           ? ldg_u32(p.residual + static_cast<size_t>(rows[h]) * p.N + col)
+                           : 0u;
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (rows[h] >= p.M) continue;
+        bf16* out = p.out + static_cast<size_t>(rows[h]) * p.N;
+#pragma unroll
+        for (int jn = 0; jn < 16; ++jn) {
+          const int col = n0 + 8 * jn + c2;
+          if (col >= p.N) continue;
+          float v[2] = {acc[mh][4 * jn + 2 * h], acc[mh][4 * jn + 2 * h + 1]};
+          if (p.bias) {
+            const float2 b = bf16x2_to_float2(bias[jn]);
+            v[0] += b.x;
+            v[1] += b.y;
+          }
+          if (p.epilogue == kEpiQkv) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (col + e < p.scaled_cols) v[e] *= p.col_scale;
+          } else if (p.epilogue == kEpiActKeep) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) v[e] = activate(v[e], p.act) * keep[h];
+          } else {
+            const float2 r = bf16x2_to_float2(res[h][jn]);
+            v[0] = (p.pads ? v[0] * keep[h] : v[0]) + r.x;
+            v[1] = (p.pads ? v[1] * keep[h] : v[1]) + r.y;
+          }
+          *reinterpret_cast<bf162*>(out + col) = __floats2bfloat162_rn(v[0], v[1]);
+        }
+      }
     }
   }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A [outer, inner] bf16 matrix with row pitch `pitch` elements, read in
+// boxes of [box_outer, 64] with 128-byte swizzle; out-of-bounds reads are
+// zeros.
+bool tensor_map(CUtensorMap* map, const bf16* base, int inner, int outer, int pitch,
+                int box_outer) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch) * sizeof(bf16)};
+  const cuuint32_t box[2] = {BK, static_cast<cuuint32_t>(box_outer)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Streaming multiprocessors of the current device (cached per device).
+int sm_count() {
+  static int count[32] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 32) return 132;
+  if (!count[dev] &&
+      cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 132;
+  return count[dev];
 }
 
 }  // namespace
@@ -173,15 +400,32 @@ cudaError_t launch_gemm_bf16(const bf16* a, const bf16* b, const bf16* bias, con
                              const bf16* residual, bf16* out, int M, int N, int K, int lda,
                              int epilogue, int activation, float col_scale, int scaled_cols,
                              cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(gemm_bf16_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kSmemBytes));
+  if (M <= 0 || N <= 0 || K <= 0 || N % 8 || K % 8 || lda % 8 || lda < K ||
+      reinterpret_cast<uintptr_t>(a) % 16 || reinterpret_cast<uintptr_t>(b) % 16)
+    return cudaErrorInvalidValue;
+  CUtensorMap map_a, map_b;
+  if (!tensor_map(&map_a, a, K, M, lda, BM) || !tensor_map(&map_b, b, N, K, N, BK))
+    return cudaErrorInvalidValue;
+  cudaError_t err = set_max_dynamic_smem<gemm_bf16_kernel>(kSmem);
   if (err != cudaSuccess) return err;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_bf16_kernel<<<grid, kThreads, kSmemBytes, stream>>>(a, b, bias, pads, residual, out, M, N, K,
-                                                  lda, epilogue, activation, col_scale,
-                                                  scaled_cols);
+  const Epi p{bias, pads, residual, out, M, N, K, epilogue, activation, col_scale, scaled_cols};
+  const long tiles = static_cast<long>((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  const int grid = static_cast<int>(tiles < sm_count() ? tiles : sm_count());
+  gemm_bf16_kernel<<<grid, kThreads, kSmem, stream>>>(map_a, map_b, p);
   return cudaGetLastError();
 }
 
 }  // namespace vp
+
+// The product stage alone, for measurement (chip_smoke.py [gemm]).
+extern "C" int vp_gemm_bf16(const void* a, const void* b, const void* bias, const void* pads,
+                            const void* residual, void* out, int M, int N, int K, int lda,
+                            int epilogue, int activation, float col_scale, int scaled_cols,
+                            void* stream) {
+  using vp::bf16;
+  return vp::launch_gemm_bf16(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(b), static_cast<const bf16*>(bias),
+      static_cast<const bf16*>(pads), static_cast<const bf16*>(residual), static_cast<bf16*>(out),
+      M, N, K, lda, epilogue, activation, col_scale, scaled_cols,
+      static_cast<cudaStream_t>(stream));
+}

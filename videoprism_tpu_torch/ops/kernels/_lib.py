@@ -64,6 +64,7 @@ _SIGNATURES = {
     'vp_int8_layer_block': 'p' * 37 + 'i' * 11 + 'fff' 'p',
     'vp_int8_qkv_projection': 'p' * 15 + 'iii' 'ff' 'p',
     'vp_int8_out_projection': 'p' * 8 + 'iii' 'p',
+    'vp_gemm_bf16': 'pppppp' 'iiiiii' 'f' 'i' 'p',
 }
 _CTYPES = {'p': ctypes.c_void_p, 'i': ctypes.c_int, 'f': ctypes.c_float}
 
@@ -196,13 +197,14 @@ def library() -> ctypes.CDLL:
 
 @functools.cache
 def max_attention_t(head_dim: int) -> int:
-  """The longest sequence K1's attention core (K and V of a head in shared
-  memory) holds at ``head_dim``, 0 when it takes no such head dim."""
+  """The longest sequence K1's attention core takes at ``head_dim``, 0 when
+  it takes no such head dim.  The core streams K and V, so where it takes
+  the head dim this is a sentinel far past the route's 1024 tokens."""
   return library().vp_attention_max_t(head_dim)
 
 
 def attention_fits(t: int, head_dim: int) -> bool:
-  """Whether K1's attention core holds a T-token sequence at this head
+  """Whether K1's attention core takes a T-token sequence at this head
   dim."""
   return t <= max_attention_t(head_dim)
 

@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from videoprism_tpu_torch import quantization
-from videoprism_tpu_torch.ops.kernels import _lib
+from videoprism_tpu_torch.ops import transformer as transformer_lib
 from videoprism_tpu_torch.ops.kernels import boundary
 from videoprism_tpu_torch.ops.kernels import flash_attention as flash
 from videoprism_tpu_torch.ops.kernels import int8_blocks as i8
@@ -213,7 +213,8 @@ def ffn_case(rows: int, d: int, f: int, *, activation: str, padded: bool,
   rng = np.random.default_rng(seed)
   w = lambda *s: rng.standard_normal(s) / np.sqrt(s[0])
   small = lambda *s: 0.1 * rng.standard_normal(s)
-  pads = _paddings(rng, rows // 8, 8, padded).reshape(rows, 1)
+  pads = (_paddings(rng, rows // 8, 8, padded) if rows % 8 == 0
+          else _paddings(rng, 1, rows, padded)).reshape(rows, 1)
   args = (_tensor(rng.standard_normal((rows, d)), device),
           _tensor(pads, device),
           _tensor(small(d), device), _tensor(small(d), device),
@@ -509,15 +510,13 @@ def int8_giant_cases(device, *, batch: int = 1,
 
 
 def capacity_cases(device, *, batch: int = 2) -> list[Case]:
-  """K1 at the longest sequence its attention core holds, at the base and
-  large head dim (64: T = 784) and at giant's (88: T = 544); one past it
-  raises ValueError."""
-  cases = []
-  for d, heads, hd in ((768, 12, 64), (GIANT[0], GIANT[1], GIANT[2])):
-    t = _lib.max_attention_t(hd)
-    cases.append(attention_case(batch, t, d, heads, hd, cap=50.0, padded=True,
-                                device=device))
-  return cases
+  """K1 at the longest sequence the fused route takes (T = 1024), at the
+  base and large head dim (64) and at giant's (88, padded to 96 inside),
+  with paddings."""
+  t = transformer_lib.MAX_FUSED_ATTENTION_T
+  return [attention_case(batch, t, d, heads, hd, cap=50.0, padded=True,
+                         device=device)
+          for d, heads, hd in ((768, 12, 64), GIANT[:3])]
 
 
 def _int8_work(case: Case) -> tuple[int, float]:

@@ -234,9 +234,8 @@ def _check_attention(x, mask, ln_scale, ln_bias, wq, sq, bq, wk, sk, bk, wv,
   _lib.check(dim_per_head % 8 == 0,
              f'dim_per_head {dim_per_head} must be a multiple of 8')
   _lib.check(_lib.attention_fits(t, dim_per_head),
-             f"T={t}, H={dim_per_head} exceed the attention kernel's shared "
-             f'memory (it holds T <= {_lib.max_attention_t(dim_per_head)} at '
-             f'H={dim_per_head})')
+             f'T={t}, H={dim_per_head}: the attention core takes head dims '
+             'that are multiples of 8, at most 128')
 
 
 def int8_attention_block_chunked(

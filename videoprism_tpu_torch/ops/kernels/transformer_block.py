@@ -148,6 +148,40 @@ def check_partial_out(partial_out: bool) -> None:
         'see ROADMAP.md, queue 1 items 3 and 13')
 
 
+GEMM_EPILOGUES = {'qkv': 0, 'act_keep': 1, 'residual': 2}
+
+
+def gemm_bf16(a: torch.Tensor, b: torch.Tensor, *, epilogue: str = 'qkv',
+              bias: torch.Tensor | None = None,
+              pads: torch.Tensor | None = None,
+              residual: torch.Tensor | None = None,
+              activation: str | None = None, col_scale: float = 1.0,
+              scaled_cols: int = 0) -> torch.Tensor:
+  """The product stage of K1, K2, K8a and K8b alone, for measurement:
+  ``epilogue(a [M, K] @ b [K, N])`` -> [M, N] bf16 through the hand-written
+  wgmma GEMM (``csrc/gemm_bf16.cu``), with the blocks' epilogues ('qkv':
+  + bias, x ``col_scale`` on the first ``scaled_cols`` columns;
+  'act_keep': act(+ bias) x keep; 'residual': (+ bias) [x keep] +
+  residual).  CUDA tensors only: the blocks' twins are its plain
+  versions."""
+  m, k = a.shape
+  n = b.shape[1]
+  _lib.check(a.is_cuda, 'gemm_bf16 runs on CUDA tensors only')
+  operands = dict(a=a, b=b, bias=bias, pads=pads, residual=residual)
+  _lib.check_tensors(a.device, **{key: t for key, t in operands.items()
+                                  if t is not None})
+  _lib.check(b.shape[0] == k and k % 8 == 0 and n % 8 == 0,
+             f'a {tuple(a.shape)} @ b {tuple(b.shape)}: K and N must agree '
+             'and be multiples of 8')
+  _lib.check(epilogue != 'residual' or residual is not None,
+             "epilogue 'residual' needs a residual")
+  out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+  _lib.launch('vp_gemm_bf16', a.device, a, b, bias, pads, residual, out, m, n,
+              k, k, GEMM_EPILOGUES[epilogue],
+              ACTIVATIONS.get(activation, 0), col_scale, scaled_cols)
+  return out
+
+
 def _launch_attention(x, mask, ln_scale, ln_bias, wqkv, bqkv, wo, bo, *,
                       num_heads, dim_per_head, chunks, logit_cap, epsilon,
                       query_scale):
@@ -167,9 +201,8 @@ def _launch_attention(x, mask, ln_scale, ln_bias, wqkv, bqkv, wo, bo, *,
   _lib.check(dim_per_head % 8 == 0,
              f'dim_per_head {dim_per_head} must be a multiple of 8')
   _lib.check(_lib.attention_fits(t, dim_per_head),
-             f"T={t}, H={dim_per_head} exceed the attention kernel's shared "
-             f'memory (it holds T <= {_lib.max_attention_t(dim_per_head)} at '
-             f'H={dim_per_head})')
+             f'T={t}, H={dim_per_head}: the attention core takes head dims '
+             'that are multiples of 8, at most 128')
   h = torch.empty((b * t, d), dtype=x.dtype, device=x.device)
   qkv = torch.empty((b * t, 3 * nh), dtype=x.dtype, device=x.device)
   ctx = torch.empty((b * t, nh), dtype=x.dtype, device=x.device)
@@ -350,8 +383,8 @@ def _launch_ffn(x, paddings, ln_scale, ln_bias, w1, b1, w2, b2, *, chunks,
   _lib.check(d % 8 == 0 and f % 8 == 0,
              f'model dim {d} and hidden dim {f} must be multiples of 8')
   # A chunk's F-slice is read in place from a [rows, F]: its offset must
-  # keep 16-byte rows.  The GEMM masks a slice that is not a multiple of
-  # its 32-deep tile.
+  # keep 16-byte rows (TMA's pitch and alignment).  The GEMM's loads
+  # zero-fill a slice that is not a multiple of its 64-deep tile.
   _lib.check((f // chunks) % 8 == 0,
              f'{chunks} chunks of hidden dim {f} must be multiples of 8')
   h = torch.empty_like(x)

@@ -8,9 +8,10 @@ JAX package's choice in ``_try_fused_layer``:
 * attention: K1 ``fused_attention_block``, or K8a
   ``fused_attention_block_chunked`` where the reference chains head groups
   (:func:`chunk_plan`), when T <= 1024, the mask covers T and, on the card,
-  K1's attention core holds T at the head dim; else the composed attention
-  half (K6 LayerNorm, ``multi_head_attention(impl='flash')`` with K5,
-  residual: the 4096-token auxiliary encoder);
+  K1's attention core takes the head dim (it streams K and V, so any T);
+  else the composed attention half (K6 LayerNorm,
+  ``multi_head_attention(impl='flash')`` with K5, residual: the 4096-token
+  auxiliary encoder);
 * FFN: K8b ``fused_ffn_block_chunked`` where the reference chains F-slices,
   else K2 ``fused_ffn_block`` (``ops/kernels/``).
 
@@ -106,8 +107,9 @@ def fused_attention_supported(t: int, atten_mask: torch.Tensor,
                               dim_per_head: int | None = None) -> bool:
   """Whether K1 (or K8a) takes a T-token sequence under ``atten_mask``: the
   JAX gate without its TPU tiling terms (T <= 1024, the mask covers T)
-  and, given ``dim_per_head`` (the kernel path on the card), the capacity
-  of K1's attention core, which keeps a head's K and V in shared memory."""
+  and, given ``dim_per_head`` (the kernel path on the card), what K1's
+  attention core takes (``_lib.attention_fits``: every T at a head dim
+  that is a multiple of 8 up to 128; it streams K and V)."""
   return (t <= MAX_FUSED_ATTENTION_T and atten_mask.shape[-1] == t
           and (dim_per_head is None or _lib.attention_fits(t, dim_per_head)))
 
@@ -194,8 +196,10 @@ def _int8_layer(params: Params, inputs: torch.Tensor,
   """An int8 layer through the W8A8 kernels, or None where the reference
   dequantizes the whole layer (a per-dim scale, an activation other than
   gelu/relu, or no int8 route for either half).  On the card, K10's and
-  K11's attention core is K1's: a sequence it cannot hold takes K12a + K5
-  + K12b where that is the same arithmetic (one head group; K11 also one
+  K11's attention core is K1's: a sequence it does not take
+  (``_lib.attention_fits``; it takes every T up to the route's 1024 at the
+  head dims the port serves) takes K12a + K5 + K12b where that is the same
+  arithmetic (one head group; K11 also one
   F-chunk, its FFN half then being K9's), and raises ``ValueError`` naming
   the limit otherwise, or where K5 cannot take the head dim (giant's 88).
   The conditions of the reference's route that the port's layer config
@@ -319,8 +323,9 @@ def transformer_layer(params: Params, inputs: torch.Tensor,
   The halves follow the module docstring.  Where the reference runs its
   composed FFN because no chunking fits its VMEM, the port keeps K2, which
   takes any row count.  On the card, a sequence that K1's attention core
-  cannot hold takes the composed half, and raises ``ValueError`` naming the
-  limit where K5 cannot take the head dim either (giant's 88).
+  does not take (``_lib.attention_fits``), or past the route's 1024 tokens,
+  takes the composed half, and raises ``ValueError`` naming the limit where
+  K5 cannot take the head dim either (giant's 88).
   """
   _check_policy(cfg)
   dtype = cfg.dtype
