@@ -7,7 +7,8 @@ result):
   1. device       the card's name, count, and nvidia-smi name / power limit;
   2. build        nvcc builds videoprism_tpu_torch/csrc for sm_90a, one
                   process per source, all at once; build time, each
-                  kernel's registers, shared memory and spills, and the
+                  kernel's registers, shared memory and spills (none
+                  allowed in K5's and K7's kernels up to H = 96), and the
                   longest sequence K1's attention core takes per head dim
                   (it streams K and V: no limit below the route's 1024);
      gemm         the wgmma + TMA GEMM of K1, K2, K8a and K8b alone at the
@@ -19,15 +20,18 @@ result):
                   (a yardstick the port never calls);
   3. kernels      every kernel against its plain twin at the shapes of the
                   encoder, CLIP, classifier and int8 paths for two requests
-                  (K9 and K10 also at 2 chunks, K11 at (2, 2)) and of the
-                  int8 giant encoder for one (K10 and K9 at 2 chunks), K7
-                  at the lvt base train step's for two clips (no ctx at
-                  the auxiliary shape, ctx at the spatial, temporal and
-                  causal text shapes, fully masked rows, cap 0), and
-                  K1 at the route's longest T = 1024 at H = 64 and 88
-                  (ops/kernels/cases.py tolerances;
-                  K8a, K8b and chunked K9/K10 also against their one-chunk
-                  twins); each
+                  (K5 also at giant's H = 88; K9 and K10 also at 2 chunks,
+                  K11 at (2, 2)) and of the int8 giant encoder for one (K10
+                  and K9 at 2 chunks), K7 at the lvt base train step's for
+                  two clips (no ctx at the auxiliary shape, given K5's row
+                  statistics; ctx at the spatial, temporal and causal text
+                  shapes, fully masked rows, cap 0) and with ctx at vc
+                  giant's spatial shape (H = 88), and K1 at the route's
+                  longest T = 1024 at H = 64 and 88 (ops/kernels/cases.py
+                  tolerances; K8a, K8b and chunked K9/K10 also against
+                  their one-chunk twins); the capped weight that K1's core,
+                  K5 and K7 share swept against fp64; K7 given K5's
+                  statistics bitwise equal to K7 computing its own; each
                   kernel's time per call (CUDA events) and on the device
                   (profiler) beside its twin's, its bound and a library
                   call's (K6: F.layer_norm, by events and by the
@@ -37,9 +41,12 @@ result):
   4. gate         layers at T = 1024 run through K1's attention core on
                   the route the reference's chunk rule picks (the base
                   width: K8a over 4 head groups; giant's width, H = 88:
-                  K1) and agree with the plain path; at T = 1032 (past
-                  the fused route) giant's head dim raises ValueError
-                  naming K5's head-dim limit;
+                  K1); past the fused route, at giant's H = 88, the float
+                  layer takes K6 + K5 at T = 1032 and 1152, and the int8
+                  layer at T = 1032 takes K12a + K5 + K12b;
+                  each agrees with the plain path; a giant-width attention
+                  block's backward (K8a, K7 at H = 88 with ctx) agrees with
+                  the plain path's gradient by the [train] rule;
   5. model        get_model('videoprism_public_v1_base') in bf16 with seeded
                   random weights answers three requests (1, 2 and 8 clips of
                   16x288x288x3) through the kernels: [B, 4096, 768], finite,
@@ -98,7 +105,8 @@ result):
                   against the plain path in fp32 (impl='reference', autograd
                   through the twins; the bf16 plain path printed beside
                   it), the launches of one step (the CLIP request's forward
-                  and K7 30 times, 28 with the context), then 3 steps of
+                  and K7 30 times, 28 with the context and 2 given K5's
+                  row statistics), then 3 steps of
                   make_train_step (AdamW, 1 warmup step) at B=8: params
                   unchanged after step 1 (lr(0) = 0), moved after step 3,
                   ms per step and peak memory;
@@ -116,8 +124,10 @@ The seeded npz files of phases 12 and 13 are written to a temporary
 directory under build/ and removed.  Counts of kernel launches are set to 0
 before each path's phase (5, 7, 9, 10, 12, 13, 14 and 16) and read after
 it.
-The line before the last is the per-kernel
-JSON record; the last line is {"ok": true, "device": {...}}.
+The line before the last is the per-kernel JSON record (K7 twice: computing
+its own row statistics, its record since it was ported, and with
+"variant": "stats from K5", the train step's route); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -150,6 +160,7 @@ from videoprism_tpu_torch.ops import masks as mask_lib
 from videoprism_tpu_torch.ops import transformer as transformer_lib
 from videoprism_tpu_torch.ops.kernels import _lib
 from videoprism_tpu_torch.ops.kernels import cases as cases_lib
+from videoprism_tpu_torch.ops.kernels import flash_attention as flash_lib
 from videoprism_tpu_torch.ops.kernels import transformer_block as tb
 from videoprism_tpu_torch.train import objectives
 from videoprism_tpu_torch.train import train_step as train_lib
@@ -242,6 +253,17 @@ KERNELS = {  # wrapper -> (hand-written source, TPU kernel it replaces)
         'videoprism_tpu_torch/csrc/flash_attention_bwd.cu',
         'videoprism_tpu/ops/pallas/flash_attention.py:291'),
 }
+# The second record of K7 in the kernels line: K7 given K5's row
+# statistics, the train step's route for K5's backward.
+K7_STATS = 'stats from K5'
+# K5's and K7's kernels, none of which may spill registers at H <= 96.
+FLASH_KERNELS = ('flash_attention_kernel', 'flash_bwd_query_kernel',
+                 'flash_bwd_key_kernel')
+# The capped weight of every attention kernel (csrc/mma_sync.cuh) against
+# fp64 over l in [-4 cap, 4 cap]: relative error of exp(cap tanh(l / cap))
+# and absolute error of 1 - tanh^2.
+WEIGHT_RTOL = 2e-5
+TANH_GRAD_ATOL = 2e-5
 DEVICE_KERNELS = ('ln_rows_kernel', 'gemm_bf16_kernel',
                   'capped_attention_kernel', 'flash_attention_kernel',
                   'quant_rows_kernel', 'gemm_i8_kernel',
@@ -269,6 +291,9 @@ PER_CLIP_REQUEST = {
 # layers).  The backward launches no forward kernel.
 PER_TRAIN_STEP = dict(PER_CLIP_REQUEST['video+text'], fused_attention_bwd=30)
 TRAIN_K7_WITH_CTX = 28
+# The K7 launches of a step given K5's row statistics: the auxiliary
+# encoder's two, without ctx.
+TRAIN_K7_WITH_STATS = 2
 # Launches per classifier forward: 24 + 4 layers of K1 and K8b (2 F-slices)
 # at large, 40 + 4 of K8a (2 head groups) and K8b (4 F-slices) at giant;
 # the boundaries; the pooler's output LN (K6).
@@ -291,6 +316,14 @@ class SmokeFailure(Exception):
 def check(cond: bool, msg: str) -> None:
   if not cond:
     raise SmokeFailure(msg)
+
+
+def near(cos: float, cos16: float, floor: float) -> bool:
+  """The [train] rule for a gradient cosine against the fp32 plain path: it
+  passes at its floor or, where the bf16 plain path itself falls below it,
+  when the kernels are no farther from the fp32 path (1 - cosine) than
+  FP32_ERR_RATIO times the bf16 plain path (``cos16``)."""
+  return cos >= floor or 1.0 - cos <= cases_lib.FP32_ERR_RATIO * (1.0 - cos16)
 
 
 def cuda_ms(fn, *, warmup: int, iters: int) -> float:
@@ -358,13 +391,16 @@ def phase_build() -> None:
   _lib.library()
   print(f'[build] {build.path.name}: nvcc {build.seconds:.1f} s '
         f'(load {time.perf_counter() - start:.1f} s)')
-  kernel, spills = None, ''
+  kernel, spills, spilled = None, '', []
   for line in build.log.splitlines():
     if 'Compiling entry function' in line:
       kernel = next((k for k in DEVICE_KERNELS if k in line), None)
-      template = re.search(r'ILi(\d+)E', line)
+      template = re.search(r'ILi(\d+)E(?:Lb([01])E)?', line)
+      ht = int(template.group(1)) if kernel and template else 0
       if kernel and template:
-        kernel += f'<{template.group(1)}>'
+        kernel += f'<{ht}' + (
+            '' if template.group(2) is None
+            else ', capped' if template.group(2) == '1' else ', no cap') + '>'
       elif kernel == 'quant_rows_kernel':
         kernel += ('<bf16>' if 'quant_rows_kernelI13__nv_bfloat16E' in line
                    else '<float>')
@@ -372,11 +408,15 @@ def phase_build() -> None:
     m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', line)
     if m and kernel:
       spills = f'spills {m.group(1)}/{m.group(2)} B'
+      if kernel.startswith(FLASH_KERNELS) and ht <= 6 and (
+          int(m.group(1)) or int(m.group(2))):
+        spilled.append(kernel)
     m = re.search(r'Used (\d+) registers.*?(?:(\d+) bytes smem)?$', line)
     if m and kernel:
       print(f'[build] {kernel}: {m.group(1)} registers, static smem '
             f'{m.group(2) or 0} B, {spills}')
       kernel = None
+  check(not spilled, f'K5 / K7 spill registers at H <= 96: {spilled}')
   for h in (64, 88):
     cap = _lib.max_attention_t(h)
     check(cap >= transformer_lib.MAX_FUSED_ATTENTION_T,
@@ -443,8 +483,53 @@ def _library_layer_norm(case):
                                                 bias, 1e-6)
 
 
-def phase_kernels(device) -> dict[str, dict]:
-  record = {k: {'max_abs_err': 0.0} for k in KERNELS}
+def _check_weight_helper(device) -> None:
+  """The capped weight every attention kernel computes per logit, over
+  2^20 logits in [-4 cap, 4 cap] at the models' cap, against fp64."""
+  cap = 50.0
+  logits = torch.linspace(-4 * cap, 4 * cap, 1 << 20, device=device)
+  w, dt = flash_lib._capped_weight(logits, cap)
+  tanh = torch.tanh(logits.double() / cap)
+  rel = ((w.double() - torch.exp(cap * tanh)).abs()
+         / torch.exp(cap * tanh)).max().item()
+  err = (dt.double() - (1.0 - tanh * tanh)).abs().max().item()
+  print(f'[kernels] capped weight (csrc/mma_sync.cuh) at cap {cap:g} over '
+        f'l in [{-4 * cap:g}, {4 * cap:g}] vs fp64: max relative error of '
+        f'exp(cap tanh(l/cap)) {rel:.3g} (limit {WEIGHT_RTOL:g}), max '
+        f'absolute error of 1 - tanh^2 {err:.3g} (limit {TANH_GRAD_ATOL:g})')
+  check(rel <= WEIGHT_RTOL and err <= TANH_GRAD_ATOL,
+        f'capped weight off: {rel} relative, 1 - tanh^2 {err} absolute')
+
+
+def _check_bwd_statistics(device) -> None:
+  """K7 given K5's row statistics gives the bits it gives computing them
+  itself: at the auxiliary shape, at a keys-masked one without a cap, and
+  at giant's head dim."""
+  for case in (
+      cases_lib.flash_bwd_case(2, 12, 4096, 4096, 64, cap=50.0, mask='none',
+                               with_ctx=False, stats=True, device=device),
+      cases_lib.flash_bwd_case(2, 12, 4096, 4096, 64, cap=0.0, mask='keys',
+                               with_ctx=False, stats=True, device=device),
+      cases_lib.flash_bwd_case(2, 16, 1032, 1032, 88, cap=50.0, mask='keys',
+                               with_ctx=False, stats=True, device=device)):
+    given = case.fn(*case.args, **case.kwargs)
+    own = case.fn(*case.args, **dict(case.kwargs, stats=None))
+    same = all(torch.equal(a, b) for a, b in zip(given, own))
+    print(f'[kernels] fused_attention_bwd {case.label}: dq, dk, dv '
+          f'{"bitwise equal" if same else "DIFFER"} to its own statistics')
+    check(same, f'K7 with K5\'s statistics differs at {case.label}')
+
+
+def variant(case: cases_lib.Case) -> str | None:
+  """The record a case's numbers go to beside its kernel's: K7 given K5's
+  row statistics (the train step's route) is kept apart from K7 computing
+  its own (the record, as before)."""
+  return K7_STATS if 'stats' in case.kwargs else None
+
+
+def phase_kernels(device) -> dict[tuple[str, str | None], dict]:
+  record = {(k, None): {'max_abs_err': 0.0} for k in KERNELS}
+  record['fused_attention_bwd', K7_STATS] = {'max_abs_err': 0.0}
   for case in (cases_lib.main_path_cases(device, batch=2)
                + cases_lib.clip_path_cases(device, batch=2)
                + cases_lib.wide_path_cases(device, batch=2)
@@ -469,8 +554,10 @@ def phase_kernels(device) -> dict[str, dict]:
           f'(atol=rtol={cases_lib.ATOL}, fp32 ratio '
           f'{cases_lib.FP32_ERR_RATIO}, chunk share ratio '
           f'{cases_lib.CHUNK_SHARE_RATIO})')
-    rec = record[r['kernel']]
+    rec = record[case.kernel, variant(case)]
     rec['max_abs_err'] = max(rec['max_abs_err'], r['max_abs_err'])
+  _check_weight_helper(device)
+  _check_bwd_statistics(device)
   # Times at the paths' shapes for two requests; the JSON record takes
   # each kernel's first shape (K1: the spatial stack's).
   timed = [
@@ -484,6 +571,10 @@ def phase_kernels(device) -> dict[str, dict]:
                          device=device),
       *cases_lib.boundary_cases(2, 16, 256, 768, device=device),
       cases_lib.flash_case(2, 12, 4096, 4096, 64, cap=50.0, mask='none',
+                           device=device),
+      # K5 at giant's head dim, the giant-width layer past the fused route
+      # ([gate]: T = 1152, one clip).
+      cases_lib.flash_case(1, 16, 1152, 1152, 88, cap=50.0, mask='keys',
                            device=device),
       cases_lib.layer_norm_case(8192, 768, direct_scale=False,
                                 device=device),
@@ -522,8 +613,12 @@ def phase_kernels(device) -> dict[str, dict]:
                                     padded=False, chunks=2, device=device),
       cases_lib.int8_ffn_case(2048, 1408, 6144, activation='gelu',
                               padded=False, chunks=2, device=device),
-      # K7 at the lvt base train step's shapes for two clips (the
-      # auxiliary encoder's first).
+      # K7's record: the auxiliary encoder's shape computing its own row
+      # statistics (the route of K1's and K8a's backward); then the lvt
+      # base train step's shapes for two clips, the auxiliary encoder's
+      # given K5's statistics as the step gives them.
+      cases_lib.flash_bwd_case(2, 12, 4096, 4096, 64, cap=50.0, mask='none',
+                               with_ctx=False, device=device),
       *cases_lib.flash_bwd_path_cases(device, batch=2),
   ]
   for case in timed:
@@ -546,7 +641,7 @@ def phase_kernels(device) -> dict[str, dict]:
     print(f'[kernels] time {case.kernel} {case.label}: kernel {ms:.4f} ms '
           f'(device {dev_ms:.4f} ms), plain twin {plain_ms:.4f} ms, library '
           f'{library}, bound {bound_ms:.4f} ms ({bound_by})')
-    rec = record[case.kernel]
+    rec = record[case.kernel, variant(case)]
     for key, value in (('ms', ms), ('device_ms', dev_ms),
                        ('plain_ms', plain_ms),
                        ('library_ms', library_ms),
@@ -566,7 +661,8 @@ def phase_kernels(device) -> dict[str, dict]:
         f'{nocap_ms:.4f} ms, scaled_dot_product_attention {sdpa_ms:.4f} ms')
   # K7's yardstick, likewise not the same function: SDPA's forward and
   # backward without a cap, on each K7 case's q, k, v and dO.
-  for case in (c for c in timed if c.kernel == 'fused_attention_bwd'):
+  for case in (c for c in timed if c.kernel == 'fused_attention_bwd'
+               and 'stats' not in c.kwargs):
     q, k, v, _, do = (a.detach().requires_grad_(i < 3)
                       for i, a in enumerate(case.args))
     sdpa = lambda: torch.autograd.grad(
@@ -740,59 +836,132 @@ def phase_clip_golden(device) -> None:
           f'CLIP golden mismatch in {key}')
 
 
+def _gate_layer(label: str, params, cfg, b: int, t: int, d: int,
+                want_routes: dict, gen, device) -> None:
+  """One layer on the kernel path against the plain path (impl='reference')
+  on the same seeded input, the last sequence padded from token 900: the
+  launches it makes must be ``want_routes``, its min per-token cosine at
+  least MIN_COSINE."""
+  x = torch.randn((b, t, d), generator=gen, device=device,
+                  dtype=torch.bfloat16)
+  pads = torch.zeros((b, t), device=device)
+  pads[-1, 900:] = 1.0
+  mask = mask_lib.attention_mask_for_fprop(x, pads)
+  _lib.reset_launches()
+  got = transformer_lib.transformer_layer(params, x, pads, mask, cfg)
+  torch.cuda.synchronize()
+  routed = {k: v for k, v in _lib.LAUNCHES.items() if v}
+  want = transformer_lib.transformer_layer(params, x, pads, mask, cfg,
+                                           impl='reference')
+  cos = cosine_per_token(got, want)
+  print(f'[gate] {label} at [{b}, {t}, {d}]: launches {routed}, min '
+        f'per-token cosine vs the plain path {cos:.6f}')
+  check(routed == want_routes, f'{label} at T={t} routed to {routed}, not '
+        f'{want_routes}')
+  check(cos >= MIN_COSINE, f'{label} at T={t}: cosine {cos} < {MIN_COSINE}')
+
+
+def _gate_block_backward(device) -> None:
+  """A giant-width attention block's backward (K8a over 2 head groups at
+  vc giant's spatial shape for two clips, then K7 at H = 88 with the
+  context) against the plain path's (autograd through the twin) in fp32,
+  by [train]'s rule: the cosine of the whole gradient and of each operand's
+  at TRAIN_MIN_COSINE / TRAIN_MIN_LEAF_COSINE, or within FP32_ERR_RATIO of
+  the bf16 plain path's distance."""
+  d, heads, hd = cases_lib.GIANT[:3]
+  case = cases_lib.attention_case(16, 256, d, heads, hd, cap=50.0,
+                                  padded=True, chunks=2, device=device)
+  gen = torch.Generator(device=device).manual_seed(7)
+  cot = torch.randn(case.args[0].shape, generator=gen, device=device)
+  names = ('x', 'ln_scale', 'ln_bias', 'wqkv', 'bqkv', 'wo', 'bo')
+
+  def grads(args, impl):
+    leaves = [a.detach().clone().requires_grad_(i != 1)
+              for i, a in enumerate(args)]
+    out = case.fn(*leaves, **case.kwargs, impl=impl)
+    (out.float() * cot).sum().backward()
+    return [a.grad.double() for i, a in enumerate(leaves) if i != 1]
+
+  _lib.reset_launches()
+  got = grads(case.args, 'kernel')
+  torch.cuda.synchronize()
+  routed = {k: v for k, v in _lib.LAUNCHES.items() if v}
+  ctx = _lib.CTX_LAUNCHES['fused_attention_bwd']
+  want32 = grads(tuple(a.float() for a in case.args), 'reference')
+  want16 = grads(case.args, 'reference')
+  cos = lambda a, b: torch.nn.functional.cosine_similarity(
+      a.flatten(), b.flatten(), dim=0).item()
+  whole = cos(torch.cat([g.flatten() for g in got]),
+              torch.cat([g.flatten() for g in want32]))
+  whole16 = cos(torch.cat([g.flatten() for g in want16]),
+                torch.cat([g.flatten() for g in want32]))
+  leaves = {n: (cos(a, c), cos(b, c))
+            for n, a, b, c in zip(names, got, want16, want32)}
+  print(f'[gate] giant-width attention block backward {case.label}: '
+        f'launches {routed}, K7 with ctx {ctx}; gradient cosine vs the fp32 '
+        f'plain path {whole:.6f} (bf16 plain path {whole16:.6f}); per '
+        'operand (kernels, bf16 plain path): '
+        + ', '.join(f'{n} {a:.6f}/{b:.6f}' for n, (a, b) in leaves.items()))
+  check(routed == {'fused_attention_block_chunked': 1,
+                   'fused_attention_bwd': 1} and ctx == 1,
+        f'giant block backward routed to {routed} (K7 with ctx {ctx})')
+  check(near(whole, whole16, TRAIN_MIN_COSINE),
+        f'giant block gradient cosine {whole} (bf16 plain path {whole16})')
+  bad = {n: v for n, v in leaves.items()
+         if not near(*v, TRAIN_MIN_LEAF_COSINE)}
+  check(not bad, f'giant block operand gradients off: {bad}')
+
+
 def phase_gate(device) -> None:
-  """Sequences K1's core used to refuse (ROADMAP fault 3.1): at T = 1024
-  a base-width and a giant-width layer run through it on the route the
-  reference's chunk rule picks; past the fused route, giant's head dim
-  raises naming K5's limit."""
+  """Sequences K1's core used to refuse (ROADMAP fault 3.1), and giant's
+  head dim past the fused route (fault 3.2): at T = 1024 a base-width and a
+  giant-width layer run through K1's core on the route the reference's
+  chunk rule picks; past the fused route the giant-width float layer takes
+  the composed half, K6 + K5 (at T = 1032 and 1152: on the card K5 takes
+  lengths off 128 too) and the giant-width int8 layer at T = 1032 the
+  reference's K12a + K5 + K12b, K5 at H = 88; each agrees with the plain
+  path.  Then a giant-width attention
+  block's backward runs K7 at H = 88."""
   init = init_lib._Init(0, 0.1)
   gen = torch.Generator(device=device).manual_seed(0)
   for b, d, heads, f in ((2, 768, 12, 3072), (1, 1408, 16, 6144)):
     cfg = transformer_lib.TransformerLayerConfig(
         num_layers=1, hidden_dim=f, num_heads=heads, activation='gelu',
         enable_per_dim_scale=False, logit_cap=50.0, dtype=torch.bfloat16)
+    tree = {'layer': init.layer(d, cfg)}
     params = prepare_for_kernels(params_from_numpy(
-        {'layer': init.layer(d, cfg)}, device=device,
-        dtype=torch.bfloat16))['layer']
+        tree, device=device, dtype=torch.bfloat16))['layer']
     t = transformer_lib.MAX_FUSED_ATTENTION_T
-    x = torch.randn((b, t, d), generator=gen, device=device,
-                    dtype=torch.bfloat16)
-    pads = torch.zeros((b, t), device=device)
-    pads[-1, 900:] = 1.0
-    mask = mask_lib.attention_mask_for_fprop(x, pads)
     attn, ffn = transformer_lib.chunk_plan(b, t, d, heads, d // heads, f, 2,
                                            causal=False)
     want_routes = {('fused_attention_block_chunked' if attn
                     else 'fused_attention_block'): 1,
                    ('fused_ffn_block_chunked' if ffn
                     else 'fused_ffn_block'): 1}
-    _lib.reset_launches()
-    got = transformer_lib.transformer_layer(params, x, pads, mask, cfg)
-    torch.cuda.synchronize()
-    routed = {k: v for k, v in _lib.LAUNCHES.items() if v}
-    want = transformer_lib.transformer_layer(params, x, pads, mask, cfg,
-                                             impl='reference')
-    cos = cosine_per_token(got, want)
-    print(f'[gate] layer at [{b}, {t}, {d}], H={d // heads} (chunk plan '
-          f'{attn}, {ffn}): launches {routed}, min per-token cosine vs the '
-          f'plain path {cos:.6f}')
-    check(routed == want_routes, f'T={t} routed to {routed}, not '
-          f'{want_routes}')
-    check(cos >= MIN_COSINE, f'T={t} layer cosine {cos} < {MIN_COSINE}')
-  # Past the fused route at giant's head dim: K5 takes multiples of 16.
-  t += 8
-  x = torch.randn((1, t, 1408), generator=gen, device=device,
-                  dtype=torch.bfloat16)
-  pads = torch.zeros((1, t), device=device)
-  try:
-    transformer_lib.transformer_layer(
-        params, x, pads, mask_lib.attention_mask_for_fprop(x, pads), cfg)
-    raised = ''
-  except ValueError as e:
-    raised = str(e)
-  print(f'[gate] giant-width layer at T={t}, H=88: ValueError: {raised}')
-  check('multiples of 16' in raised, 'no ValueError naming K5\'s head-dim '
-        f'limit at T={t}, H=88')
+    _gate_layer(f'layer, H={d // heads} (chunk plan {attn}, {ffn})', params,
+                cfg, b, t, d, want_routes, gen, device)
+  # Past the fused route at giant's head dim (88, padded to 96 inside K5).
+  for t in (t + 8, t + 128):
+    _, ffn = transformer_lib.chunk_plan(b, t, d, heads, d // heads, f, 2,
+                                        causal=False)
+    want_routes = {'fused_layer_norm_2d': 1, 'fused_attention': 1,
+                   ('fused_ffn_block_chunked' if ffn
+                    else 'fused_ffn_block'): 1}
+    _gate_layer('giant-width layer past the fused route, H=88', params, cfg,
+                b, t, d, want_routes, gen, device)
+  t = transformer_lib.MAX_FUSED_ATTENTION_T + 8
+  plan = transformer_lib.int8_plan(b, t, d, heads, d // heads, f, 2,
+                                   causal=False)
+  check(plan.projected and plan.ffn_chunks,
+        f'int8 route at T={t}, H=88 is {plan}')
+  params = prepare_for_kernels(params_from_numpy(
+      quantization.quantize_for_serving(tree), device=device,
+      dtype=torch.bfloat16))['layer']
+  _gate_layer('int8 giant-width layer past the fused route, H=88', params,
+              cfg, b, t, d, {'int8_qkv_projection': 1, 'fused_attention': 1,
+                             'int8_out_projection': 1,
+                             'int8_ffn_block_chunked': 1}, gen, device)
+  _gate_block_backward(device)
 
 
 def _leaves(tree):
@@ -1227,11 +1396,15 @@ def phase_train(device, smi: str):
   torch.cuda.synchronize()
   per = launches_since({})
   ctx = _lib.CTX_LAUNCHES['fused_attention_bwd']
+  given = _lib.STATS_LAUNCHES['fused_attention_bwd']
   print(f'[train] B=2 value_and_grad launches '
-        f'{ {k: v for k, v in per.items() if v} }, K7 with ctx {ctx}')
-  check(per == PER_TRAIN_STEP and ctx == TRAIN_K7_WITH_CTX,
-        f'train step launches {per} (K7 with ctx {ctx}) != {PER_TRAIN_STEP} '
-        f'({TRAIN_K7_WITH_CTX} with ctx)')
+        f'{ {k: v for k, v in per.items() if v} }, K7 with ctx {ctx}, K7 '
+        f"given K5's statistics {given}")
+  check(per == PER_TRAIN_STEP and ctx == TRAIN_K7_WITH_CTX
+        and given == TRAIN_K7_WITH_STATS,
+        f'train step launches {per} (K7 with ctx {ctx}, given statistics '
+        f'{given}) != {PER_TRAIN_STEP} ({TRAIN_K7_WITH_CTX} with ctx, '
+        f'{TRAIN_K7_WITH_STATS} given statistics)')
   check(all(bool(torch.isfinite(g).all()) for _, g in _grad_leaves(grads)),
         'non-finite gradient on the kernel path')
   cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
@@ -1261,11 +1434,6 @@ def phase_train(device, smi: str):
           f'path {leaves16[name]:.6f}')
   check(abs(loss.item() - loss32.item()) <= TRAIN_LOSS_ATOL,
         f'loss {loss.item()} vs fp32 {loss32.item()}')
-  # Each cosine passes at its floor, or where the bf16 plain path itself
-  # falls below it, when the kernels are no farther from the fp32 path
-  # (1 - cosine) than FP32_ERR_RATIO times the bf16 plain path.
-  near = lambda c, c16, floor: (
-      c >= floor or 1.0 - c <= cases_lib.FP32_ERR_RATIO * (1.0 - c16))
   check(near(cos, cos16, TRAIN_MIN_COSINE),
         f'gradient cosine {cos} < {TRAIN_MIN_COSINE} and farther than '
         f'{cases_lib.FP32_ERR_RATIO}x the bf16 plain path ({cos16})')
@@ -1302,15 +1470,17 @@ def phase_train(device, smi: str):
       check(moved == 0, f'{moved} leaves moved at lr(0) = 0')
   check(moved > 0, 'no leaf moved after 3 steps')
   launches = dict(_lib.LAUNCHES)
-  check(launches_since({}) == {k: 3 * v for k, v in PER_TRAIN_STEP.items()},
-        f'3 steps launched {launches}')
+  given = _lib.STATS_LAUNCHES['fused_attention_bwd']
+  check(launches_since({}) == {k: 3 * v for k, v in PER_TRAIN_STEP.items()}
+        and given == 3 * TRAIN_K7_WITH_STATS,
+        f'3 steps launched {launches}, K7 given statistics {given}')
   ms = cuda_ms(lambda: step(state, batch), warmup=2, iters=5)
   print(f'[train] B=8 step (make_train_step, AdamW): {ms:.3f} ms/step, '
         f'{8000.0 / ms:.2f} clips/s, peak device memory {peak_gb:.3f} GiB '
         f'({smi})')
   del state, start, now, params, trainable
   torch.cuda.empty_cache()
-  return launches
+  return launches, given
 
 
 def phase_train_golden(device) -> None:
@@ -1421,7 +1591,7 @@ def main() -> int:
       device, giant_tree, giant[1]['encoder'])
   del giant_tree
   phase_int8_golden(device)
-  train_launches = phase_train(device, smi)
+  train_launches, train_given_stats = phase_train(device, smi)
   phase_train_golden(device)
   phase_times(device, model, params, clip_model, clip_params,
               (('vc large', vc, (1, 8)), ('vc giant', giant, (1,))),
@@ -1429,19 +1599,24 @@ def main() -> int:
                ('int8 clip video+text', int8_clip, (1, 8), _video),
                ('int8 giant encoder', int8_giant, (1,), _vc_video)), smi)
   kernels = []
-  for k, (source, replaces) in KERNELS.items():
-    by_path = {'encoder': encoder_launches.get(k, 0),
-               'clip': clip_launches.get(k, 0),
-               'vc': vc_launches.get(k, 0),
-               'vc-giant': giant_launches.get(k, 0),
-               'int8-encoder': int8_launches.get(k, 0),
-               'int8-clip': int8_clip_launches.get(k, 0),
-               'int8-giant': int8_giant_launches.get(k, 0),
-               'train': train_launches.get(k, 0)}
+  for (k, var), rec in record.items():
+    source, replaces = KERNELS[k]
+    if var is None:
+      by_path = {'encoder': encoder_launches.get(k, 0),
+                 'clip': clip_launches.get(k, 0),
+                 'vc': vc_launches.get(k, 0),
+                 'vc-giant': giant_launches.get(k, 0),
+                 'int8-encoder': int8_launches.get(k, 0),
+                 'int8-clip': int8_clip_launches.get(k, 0),
+                 'int8-giant': int8_giant_launches.get(k, 0),
+                 'train': train_launches.get(k, 0)}
+    else:   # only the train step runs K7 given K5's statistics
+      by_path = {'train': train_given_stats}
     launches = sum(by_path.values())
-    check(launches > 0, f'{k} never launched on a path')
-    rec = record[k]
-    kernels.append(dict(name=k, route='cuda', source=source,
+    check(launches > 0, f'{k} ({var or "the record"}) never launched on a '
+          'path')
+    kernels.append(dict(name=k, **({} if var is None else {'variant': var}),
+                        route='cuda', source=source,
                         replaces=replaces, launches=launches,
                         launches_by_path=by_path,
                         max_abs_err=rec['max_abs_err'], ms=rec['ms'],

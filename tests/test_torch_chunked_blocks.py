@@ -325,11 +325,12 @@ class TestCapacityGate:
     assert ttfm.fused_attention_supported(784, mask[..., :784], 64)
     assert not ttfm.fused_attention_supported(1040, mask[..., :1], 64)
 
-  @pytest.mark.parametrize('h,routes', [(32, 'composed'), (24, 'raises')])
+  @pytest.mark.parametrize('h,routes', [(24, 'composed'), (20, 'raises')])
   def test_layer_past_capacity(self, monkeypatch, h, routes):
     """Past K1's capacity the kernel path takes the composed half (K6 +
-    K5) where K5 takes the head dim, and raises naming the limit where it
-    does not (a multiple of 8, not of 16, as giant's 88)."""
+    K5) where K5 takes the head dim (a multiple of 8: 24, not a multiple of
+    16, as giant's 88), and raises naming the limit where it does not
+    (20)."""
     n, t = 4, 800
     p = _layer(8, n, h)
     composed = []
@@ -350,7 +351,7 @@ class TestCapacityGate:
         jax.tree.map(torch.from_numpy, p), x, None,
         torch.zeros((1, 1, 1, t)), cfg)
     if routes == 'raises':
-      with pytest.raises(ValueError, match=r'T <= 784.*multiples of 16'):
+      with pytest.raises(ValueError, match=r'T <= 784.*multiples of 8'):
         call()
     else:
       call()

@@ -64,7 +64,8 @@ def test_kernels_at_the_paths_and_ragged_shapes(device):
   at head dims 64 and 88, cap 50 and 0, padded.  Then ragged shapes: K1 at
   lengths off the tiles (4, 40, 100) and at head dims 88 (giant's, padded
   to 96 inside), 128 and 8; K2 with ragged rows; K5 and K7 with query and
-  key counts off the tiles and other head widths."""
+  key counts off the tiles and other head widths (giant's 88, 8 and 96
+  among them, 88 and 8 padded to 96 and 16 inside)."""
   cases = []
   # Two clips of 16 frames x 256 tokens, and the text tower's 65 tokens.
   for b, t, causal in ((32, 256, False), (512, 16, False), (2, 65, True)):
@@ -109,11 +110,13 @@ def test_kernels_at_the_paths_and_ragged_shapes(device):
                                           device=device))
   cases.append(cases_lib.ffn_case(200, 136, 264, activation='gelu',
                                   padded=True, device=device))
-  for t, s, h in ((1, 1, 64), (100, 200, 32), (130, 70, 128), (256, 128, 16)):
+  for t, s, h in ((1, 1, 64), (100, 200, 32), (130, 70, 128), (256, 128, 16),
+                  (70, 130, 88), (33, 65, 8), (100, 70, 96)):
     for mask in ('keys', 'rows'):
       cases.append(cases_lib.flash_case(3, 2, t, s, h, cap=50.0, mask=mask,
                                         device=device))
-  for t, s, h in ((1, 1, 64), (100, 200, 32), (130, 70, 64), (65, 65, 48)):
+  for t, s, h in ((1, 1, 64), (100, 200, 32), (130, 70, 64), (65, 65, 48),
+                  (70, 130, 88), (33, 65, 8), (100, 70, 96)):
     for mask in ('keys', 'rows'):
       for cap in (50.0, 0.0):
         cases.append(cases_lib.flash_bwd_case(3, 2, t, s, h, cap=cap,
@@ -169,13 +172,14 @@ def test_dispatch_counts_and_refusals(device):
   torch.cuda.synchronize()
   assert dict(_lib.LAUNCHES) == {'fused_attention': 1,
                                  'fused_layer_norm_2d': 1}
-  with pytest.raises(ValueError, match='head dim'):
-    q = flash.args[0][..., :8].contiguous()
+  with pytest.raises(ValueError, match='head dim 12.*multiples of 8'):
+    q = flash.args[0][..., :12].contiguous()
     flash.fn(q, q, q, flash.args[3], **flash.kwargs)
   with pytest.raises(ValueError, match='bfloat16'):
     ln.fn(ln.args[0].float(), *ln.args[1:], **ln.kwargs)
-  # K7 counts its launches (and those that emit the context) and refuses
-  # giant's head dim, naming the limit.
+  # K7 counts its launches (and those that emit the context), takes
+  # giant's head dim (88, padded to 96 inside) and refuses one past its
+  # limit, naming it.
   bwd = cases_lib.flash_bwd_case(1, 2, 128, 128, 64, cap=50.0, mask='none',
                                  with_ctx=True, device=device)
   _lib.reset_launches()
@@ -184,9 +188,12 @@ def test_dispatch_counts_and_refusals(device):
   torch.cuda.synchronize()
   assert dict(_lib.LAUNCHES) == {'fused_attention_bwd': 1}
   assert _lib.CTX_LAUNCHES['fused_attention_bwd'] == 1
-  q88 = torch.zeros((1, 2, 128, 88), dtype=torch.bfloat16, device=device)
-  with pytest.raises(ValueError, match='head dim 88.*at most 64'):
-    bwd.fn(q88, q88, q88, bwd.args[3], q88, **bwd.kwargs)
+  _check_all([cases_lib.flash_bwd_case(1, 2, 128, 128, 88, cap=50.0,
+                                       mask='none', with_ctx=True,
+                                       device=device)])
+  q104 = torch.zeros((1, 2, 128, 104), dtype=torch.bfloat16, device=device)
+  with pytest.raises(ValueError, match='head dim 104.*at most 96'):
+    bwd.fn(q104, q104, q104, bwd.args[3], q104, **bwd.kwargs)
   # Under autograd on the card a block runs its kernel forward and K7 in
   # its backward, never a twin.
   att = cases_lib.attention_case(2, 40, 128, 2, 64, cap=50.0, padded=True,
@@ -242,8 +249,10 @@ def test_attention_capacity_gate(device):
   its twin; a base-width and a giant-width layer at T = 1024 run through
   the core on the route the reference's chunk rule picks (K8a over 4 head
   groups; K1) and agree with the plain path, as does lvt base with a
-  4-frame clip (auxiliary T = 1024: K8a); past the route, at T = 1032,
-  giant's head dim raises naming K5's head-dim limit."""
+  4-frame clip (auxiliary T = 1024: K8a); past the route, at giant's head
+  dim (ROADMAP fault 3.2, closed), the giant-width layer takes the
+  composed half, K6 + K5, and agrees with the plain path at T = 1032 and
+  1152 (on the card K5 takes lengths off 128 too)."""
   _check_all(cases_lib.capacity_cases(device))
   gen = torch.Generator(device=device).manual_seed(0)
   t = transformer_lib.MAX_FUSED_ATTENTION_T
@@ -266,11 +275,21 @@ def test_attention_capacity_gate(device):
                                              impl='reference')
     assert _min_cosine(got, want) >= 0.999
 
-  x = torch.zeros((1, t + 8, 1408), device=device, dtype=torch.bfloat16)
-  pads = torch.zeros((1, t + 8), device=device)
-  mask = mask_lib.attention_mask_for_fprop(x, pads)
-  with pytest.raises(ValueError, match=f'T <= {t}.*multiples of 16'):
-    transformer_lib.transformer_layer(params, x, pads, mask, cfg)
+  want_routes = {'fused_layer_norm_2d': 1, 'fused_attention': 1,
+                 'fused_ffn_block_chunked': 1}
+  for t_past in (t + 8, t + 128):
+    x = torch.randn((1, t_past, 1408), generator=gen, device=device,
+                    dtype=torch.bfloat16)
+    pads = torch.zeros((1, t_past), device=device)
+    pads[0, 900:] = 1.0
+    mask = mask_lib.attention_mask_for_fprop(x, pads)
+    _lib.reset_launches()
+    got = transformer_lib.transformer_layer(params, x, pads, mask, cfg)
+    torch.cuda.synchronize()
+    assert dict(_lib.LAUNCHES) == want_routes
+    want = transformer_lib.transformer_layer(params, x, pads, mask, cfg,
+                                             impl='reference')
+    assert _min_cosine(got, want) >= 0.999
 
   model = registry.get_model('videoprism_lvt_public_v1_base',
                              fprop_dtype=torch.bfloat16)
@@ -433,7 +452,7 @@ def _int8_kernels_and_dispatch(device):
   and at the int8 paths' shapes (the giant encoder's too); their launch
   counts and refusals; an int8 layer at T = 800, H = 64 on the
   reference's route (K10 and K9 in one chunk), and past the fused route at
-  giant's H = 88 (ValueError naming K5's limit); a tiny int8 encoder
+  giant's H = 88 (K12a + K5 + K12b, K9 over 2 F-slices); a tiny int8 encoder
   through K11 (F = 256) and through K10 + K9 (F = 192, which
   the reference's layer kernel refuses) and a tiny int8 CLIP through K12a
   + K5 + K12b, each against the plain path on the card."""
@@ -492,8 +511,7 @@ def _int8_kernels_and_dispatch(device):
                                            impl='reference')
   assert _min_cosine(got, want) >= 0.999
   # Past the fused route (T = 1032) the reference's int8 route is K12a + K5
-  # + K12b, and K5 needs H % 16 == 0: at giant's head dim the layer raises
-  # naming the limit.
+  # + K12b, K5 at giant's head dim (88, padded to 96 inside).
   cfg = dataclasses.replace(cfg, hidden_dim=6144, num_heads=16)
   params = _int8_params({'layer': init_lib._Init(0, 0.1).layer(1408, cfg)},
                         device)['layer']
@@ -501,9 +519,17 @@ def _int8_kernels_and_dispatch(device):
   x = torch.randn((1, t, 1408), generator=gen, device=device,
                   dtype=torch.bfloat16)
   pads = torch.zeros((1, t), device=device)
-  with pytest.raises(ValueError, match='multiples of 16'):
-    transformer_lib.transformer_layer(
-        params, x, pads, mask_lib.attention_mask_for_fprop(x, pads), cfg)
+  pads[0, 900:] = 1.0
+  mask = mask_lib.attention_mask_for_fprop(x, pads)
+  _lib.reset_launches()
+  got = transformer_lib.transformer_layer(params, x, pads, mask, cfg)
+  torch.cuda.synchronize()
+  assert dict(_lib.LAUNCHES) == {
+      'int8_qkv_projection': 1, 'fused_attention': 1,
+      'int8_out_projection': 1, 'int8_ffn_block_chunked': 1}
+  want = transformer_lib.transformer_layer(params, x, pads, mask, cfg,
+                                           impl='reference')
+  assert _min_cosine(got, want) >= 0.999
 
   video = torch.randn((2, 4, 24, 24, 3), generator=gen, device=device)
   for f, want_launches in (

@@ -333,9 +333,9 @@ def test_int8_route_rule_matches_reference(monkeypatch):
 
   # On the card, with the attention core's capacity replaced by a stand-in
   # that holds T <= 784: at T = 800 the one-group layer takes K12a + K5 +
-  # K12b and K9 in one chunk; a chunked one, or a head dim K5 cannot take
-  # (24, a multiple of 8 but not of 16, as giant's 88), raises naming the
-  # limit.
+  # K12b and K9 in one chunk, at H = 32 and at 24 (a multiple of 8 but not
+  # of 16, as giant's 88); a chunked one, or a head dim K5 cannot take (20,
+  # not a multiple of 8), raises naming the limit.
   monkeypatch.setattr(_lib, 'use_kernel', lambda impl, x: True)
   monkeypatch.setattr(_lib, 'max_attention_t', lambda h: 784)
   called = []
@@ -350,11 +350,13 @@ def test_int8_route_rule_matches_reference(monkeypatch):
       tq.quantize_for_serving({'l': _layer(50, 4, h)})['l'], device='cpu')
   call = lambda h: ttfm.transformer_layer(layer(h), x, None,
                                           torch.zeros((1, 1, 1, 800)), cfg)
-  call(32)
-  assert called == [('int8_projected_flash_attention', None),
-                    ('int8_ffn_block_chunked', 1)], called
-  with pytest.raises(ValueError, match=r'T <= 784.*multiples of 16'):
-    call(24)
+  for h in (32, 24):
+    called.clear()
+    call(h)
+    assert called == [('int8_projected_flash_attention', None),
+                      ('int8_ffn_block_chunked', 1)], (h, called)
+  with pytest.raises(ValueError, match=r'T <= 784.*multiples of 8'):
+    call(20)
   monkeypatch.setattr(ti8, 'attention_int8_chunks_for', lambda *a: 2)
   with pytest.raises(ValueError, match=r'T <= 784.*chunks this layer'):
     call(32)

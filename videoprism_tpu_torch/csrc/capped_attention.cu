@@ -12,35 +12,36 @@
 // same core.
 //
 // Bound: at the base model's shapes (S = 256 or 16, H = 64) the two
-// products are small (2*S*H FLOPs per logit) and the per-logit tanh/exp
-// weigh as much as the tensor-core work; q, k, v and ctx cross device memory
-// once.  What limits the kernel is the transcendental work per logit, paid
-// in each pass, and latency, hidden by many warps per SM.
+// products are small (2*S*H FLOPs per logit), and the per-logit weight
+// (three special-function operations, mma_sync.cuh logit_weight), which
+// no bound counts, weighs as much as the tensor-core work; q, k, v and ctx
+// cross device memory once.  What limits the kernel is that work per
+// logit, paid in each pass, and latency, hidden by many warps per SM.
 // Design: the structure of K5 (flash_attention.cu) over the fused q|k|v
-// buffer.  One block of 8 warps per (sequence, head, tile of 128 queries),
-// a warp per 16 query rows (q in shared memory, its fragments read per key
-// tile, so that two blocks fit an SM); K and V of the head streamed in
-// tiles of 64 keys through a two-stage cp.async ring, so shared memory does
-// not grow with T and every T runs; the last tile of a pass prefetches the
-// next pass's first.  Logits come from mma_sync.cuh's tile_logits, the
-// instructions K5 and K7 use, so the probabilities are the bits K7
-// recomputes in K1's backward; tanh/exp, the mask, the row sums and the
-// normalisation act on the mma.sync accumulator fragments where they are,
-// and the bf16 probs become the A operand of P @ V in registers.  Pass one
-// sums the exponentials of each row, pass two recomputes each logit tile
-// (bit-identical), normalises, casts and multiplies; a pass zero takes the
-// row max when there is no cap.  The cap is a template constant, so each
-// loop holds one formula, and the mask becomes a 64-bit word per tile and
-// row half (two ballots where one mask row serves every query), so the
-// loops branch on nothing per logit.  A single key tile (T <= 64) is loaded
-// once with q and kept, with its logits and weights held in registers
-// from pass to pass.  At T <= 16 (the temporal stack) one warp takes one
-// (sequence, head): each of the two 64-row key stages holds four pairs'
-// keys, 16 each, and each warp keeps only its own pair's 16 columns in the
-// softmax (n-tiles without them are skipped by a warp-uniform test), so a
-// block is eight busy warps.  The head dim is zero-padded to a multiple of
-// 16 inside (giant's 88 runs as 96); ragged T is zero-filled and left out
-// of the softmax.
+// buffer.  One block of 8 warps per (sequence, head, tile of 128 queries), a
+// warp per 16 query rows (q in shared memory, its fragments read per key
+// tile, so that two blocks fit an SM); K and V of the head streamed in tiles
+// of 64 keys through a two-stage cp.async ring, so shared memory does not
+// grow with T and every T runs; the last tile of a pass prefetches the next
+// pass's first.  Logits come from mma_sync.cuh's tile_logits, the instructions
+// K5 and K7 use, so the probabilities are the bits K7 recomputes in K1's
+// backward; the weight (logit_weight, shared with K5 and K7), the mask, the
+// row sums and the normalisation (by a reciprocal of the row sum taken once
+// per row) act on the mma.sync accumulator fragments where they are, and the
+// bf16 probs become the A operand of P @ V in registers.  Pass one sums the
+// weights of each row, pass two recomputes each logit tile (bit-identical),
+// normalises, casts and multiplies; a pass zero takes the row max when there
+// is no cap.  The cap is a template constant, so each loop holds one formula,
+// and the mask becomes a 64-bit word per tile and row half (two ballots where
+// one mask row serves every query), so the loops branch on nothing per
+// logit.  A single key tile (T <= 64) is loaded once with q and kept, with its
+// logits and weights held in registers from pass to pass.  At T <= 16 (the
+// temporal stack) one warp takes one (sequence, head): each of the two 64-row
+// key stages holds four pairs' keys, 16 each, and each warp keeps only its
+// own pair's 16 columns in the softmax (n-tiles without them are skipped by a
+// warp-uniform test), so a block is eight busy warps.  The head dim is
+// zero-padded to a multiple of 16 inside (giant's 88 runs as 96); ragged T is
+// zero-filled and left out of the softmax.
 #include "mma_sync.cuh"
 
 namespace vp {
@@ -67,7 +68,7 @@ template <int HT, bool kCapped>
 __global__ void __launch_bounds__(kWarps * 32, HT <= 4 ? 2 : 1)
     capped_attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
                             bf16* __restrict__ ctx, int T, int num_heads, int H, int mask_b,
-                            int mask_t, float cap, float inv_cap, bool packed, int pairs) {
+                            int mask_t, CapConsts cc, bool packed, int pairs) {
   constexpr int LD = 16 * HT + 8;
   constexpr int CH = 2 * HT;  // 16-byte chunks per padded head row
   extern __shared__ __align__(128) unsigned char smem[];
@@ -227,12 +228,13 @@ __global__ void __launch_bounds__(kWarps * 32, HT <= 4 ? 2 : 1)
   auto unmasked = [&](int jn, int e) {
     return ((bits[e >> 1] >> (jn * 8 + c2 + (e & 1))) & 1) != 0;
   };
-  // Unnormalised weight of logit l (kNegInf-masked with no cap, relative
-  // to the row max mx); the cap is a template constant, so each loop holds
-  // one of the two formulas.
+  // Unnormalised weight of logit l (mma_sync.cuh logit_weight, the
+  // expressions of K5 and K7; 0 where masked); the cap is a template
+  // constant, so each loop holds one of the two formulas.
   auto weight = [&](float l, bool ok, float mx) {
-    if constexpr (kCapped) return ok ? expf(cap * tanhf(l * inv_cap)) : 0.f;
-    return expf((ok ? l : kNegInf) - mx);
+    float r;
+    const float w = logit_weight<kCapped>(l, mx, cc, r);
+    return ok ? w : 0.f;
   };
 
   float mx[2] = {0.f, 0.f};
@@ -247,7 +249,7 @@ __global__ void __launch_bounds__(kWarps * 32, HT <= 4 ? 2 : 1)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int s = key(j, jn, e), h = e >> 1;
-          if (valid(s)) m[h] = fmaxf(m[h], unmasked(jn, e) ? sc[jn][e] : kNegInf);
+          if (valid(s)) m[h] = fmaxf(m[h], unmasked(jn, e) ? sc[jn][e] : -FLT_MAX);
         }
       }
     });
@@ -280,14 +282,13 @@ __global__ void __launch_bounds__(kWarps * 32, HT <= 4 ? 2 : 1)
       }
     }
   });
-  bool uniform[2];
+  RowScale rs[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
     sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
-    uniform[h] = sum[h] == 0.f;  // fully masked row (capped path)
+    rs[h] = row_scale(sum[h], T);  // a fully masked row sums to 0: uniform
   }
-  const float inv_t = 1.f / static_cast<float>(T);
 
   // Pass two: the same weights (recomputed bit for bit, or kept for a
   // resident tile), normalised, cast and multiplied into the context.
@@ -310,7 +311,7 @@ __global__ void __launch_bounds__(kWarps * 32, HT <= 4 ? 2 : 1)
         float w = 0.f;
         if (any && valid(s)) {
           const float u = resident ? sc[jn][e] : weight(sc[jn][e], unmasked(jn, e), mx[h]);
-          w = uniform[h] ? inv_t : u / sum[h];
+          w = normalise(u, rs[h]);
         }
         sc[jn][e] = w;
       }
@@ -344,9 +345,8 @@ cudaError_t launch(const bf16* qkv, const float* mask, bf16* ctx, int batch, int
   const int pairs = batch * num_heads;
   const dim3 grid = packed ? dim3((pairs + kWarps - 1) / kWarps)
                            : dim3(batch * ((T + kBlockM - 1) / kBlockM), num_heads);
-  const float inv_cap = cap > 0.f ? static_cast<float>(1.0 / cap) : 0.f;
   capped_attention_kernel<HT, kCapped><<<grid, kWarps * 32, smem, stream>>>(
-      qkv, mask, ctx, T, num_heads, H, mask_b, mask_t, cap, inv_cap, packed, pairs);
+      qkv, mask, ctx, T, num_heads, H, mask_b, mask_t, cap_consts(cap), packed, pairs);
   return cudaGetLastError();
 }
 

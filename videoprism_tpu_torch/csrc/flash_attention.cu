@@ -5,29 +5,44 @@
 // an additive fp32 mask [B|1, T|1, S]; fp32 logits, cap * tanh(l / cap)
 // before the select-mask against -0.7 * f32max * 0.5, exp with masked
 // entries zeroed, fp32 normalisation (fully masked rows uniform 1/S; the
-// row max is taken only without a cap), probs cast to bf16, probs @ v with
-// fp32 accumulation, one cast.  Out [B, N, T, H] bf16.
+// row max is taken only without a cap), probs cast to bf16 after the
+// normalisation, probs @ v with fp32 accumulation, one cast.  Out [B, N, T,
+// H] bf16.  Optionally (under autograd) each row's max and sum, for K7.
 //
 // Bound: at the auxiliary encoder's shape ([B, 12, 4096, 64], S = 4096)
-// the two products are 4*T*S*H FLOPs per head against 2*T*H + 2*S*H bytes
-// of q, k, v and out, far above the card's ~295 FLOPs per byte, so the
-// tensor cores bound it on paper; in practice the per-logit tanh and exp,
-// paid again in every pass, set its time, not the products.
+// the two products the work needs (Q K^T and P @ V, 4 T S H FLOPs) are far
+// above the card's ~295 FLOPs per byte of q, k, v and out, so the bound is
+// the tensor cores' time for them (cases.bound: bytes and tensor-core
+// operations, nothing else).  Beyond it the kernel recomputes the logits
+// in every pass (two with a cap, three without) and pays each logit's
+// weight in each pass: three special-function operations (mma_sync.cuh
+// logit_weight), which the bound does not count.
 // Design: the TPU kernel keeps a head's whole K and V (1 MB at S = 4096) in
 // VMEM and the [T, S] fp32 logit block with them.  A Hopper block has
-// 227 KB, and online-softmax rescaling (FlashAttention proper) would round
-// differently from the TPU kernel's exact softmax.  So this kernel keeps
-// the TPU op order and streams instead: one block per (query tile of 128
-// rows, head, batch), one warp per 16 query rows, q held in registers, K
-// and V tiles of 64 keys streamed through a two-stage cp.async ring.  Pass
-// one sums the exponentials of each row, pass two recomputes each logit
-// tile (the same mma.sync instructions on the same inputs give
-// bit-identical logits), normalises, casts and multiplies it into the
-// output accumulators at once; a pass zero takes the row max when there is
-// no cap.  Logits live in mma.sync m16n8k16 accumulators and become the
-// A operand of the P @ V product in registers, so nothing of the [T, S]
-// block touches shared or device memory.  Ragged T and S are zero-filled
-// and left out of the softmax.
+// 227 KB, and online-softmax rescaling (FlashAttention proper) or a final
+// normalisation would round bf16 probabilities differently from the TPU
+// kernel's exact softmax.  So this kernel keeps the TPU op order and
+// streams instead: one block per (query tile of 128 rows, head, batch), one
+// warp per 16 query rows (q in shared memory, its fragments read per key
+// tile, so that two blocks fit an SM), K and V tiles of 64 keys streamed
+// through a two-stage cp.async ring.  Pass one sums the weights of each row
+// (per lane over the 64-key tiles in order, then two shuffles: K7's order,
+// so K7 given these sums computes what it would compute itself), pass two
+// recomputes each logit tile, in two halves of 32 keys that leave the
+// registers to the output accumulators (tile_logits: the same mma.sync
+// instructions on the same inputs give bit-identical logits), normalises
+// by the row's reciprocal, casts and multiplies 16 keys at a time into the
+// output; a pass zero takes the row max when there is no cap.  The cap is
+// a template constant, so each loop holds one formula;
+// the mask is one 64-bit word per tile and row half (two ballots of values
+// fetched a tile ahead where one mask row serves every query, the
+// auxiliary encoder's case), and ragged key tiles skip their dead 8-key
+// n-tiles by a warp-uniform test, so no loop branches per logit.  Logits
+// live in mma.sync m16n8k16 accumulators and become the A operand of the P
+// @ V product in registers, so nothing of the [T, S] block touches shared
+// or device memory.  The head dim is zero-padded to a multiple of 16
+// inside (giant's 88 runs as 96); ragged T and S are zero-filled and left
+// out of the softmax.
 #include "mma_sync.cuh"
 
 namespace vp {
@@ -42,21 +57,21 @@ constexpr size_t flash_smem_bytes() {
   return sizeof(bf16) * (16 * HT + 8) * (kBlockM + 4 * kBlockN);
 }
 
-// HT = H / 16.  Shared memory: the q tile [kBlockM, LD], then two stages
-// each of K and V [kBlockN, LD] (LD = H + 8 bf16: rows 16-byte aligned and
-// ldmatrix free of bank conflicts).
+// HT = H / 16 rounded up.  Shared memory: the q tile [kBlockM, LD], then
+// two stages each of K and V [kBlockN, LD] (LD = 16 * HT + 8 bf16: rows
+// 16-byte aligned and ldmatrix free of bank conflicts).  `stats`, when not
+// null, gets [2][B * N][t_pad] fp32: each row's max (0 under a cap) and sum
+// of weights, rows up to t_pad (kStatRows) written.
 //
 // Fragment layouts: mma_sync.cuh.  Logits of a 16 x 64 tile stay in
 // mma.sync accumulators and become the A operand of the P @ V product.
-template <int HT>
-__global__ void __launch_bounds__(kWarps * 32)
+template <int HT, bool kCapped>
+__global__ void __launch_bounds__(kWarps * 32, HT <= 4 ? 2 : 1)
     flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            const bf16* __restrict__ v, const float* __restrict__ mask,
-                           bf16* __restrict__ out, int N, int T, int S, int mask_b, int mask_t,
-                           float cap, float inv_cap) {
-  constexpr int H = 16 * HT;
-  constexpr int LD = H + 8;
-  constexpr int CH = H / 8;  // 16-byte chunks per row
+                           bf16* __restrict__ out, float* __restrict__ stats, int N, int T,
+                           int S, int H, int mask_b, int mask_t, CapConsts cc) {
+  constexpr int LD = 16 * HT + 8;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = Qs + kBlockM * LD;
@@ -64,86 +79,71 @@ __global__ void __launch_bounds__(kWarps * 32)
 
   const int q0 = blockIdx.x * kBlockM, n = blockIdx.y, b = blockIdx.z;
   const size_t head = static_cast<size_t>(b) * N + n;
-  const bf16* qh = q + head * T * H;
   const bf16* kh = k + head * S * H;
   const bf16* vh = v + head * S * H;
-  bf16* oh = out + head * T * H;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, threads = kWarps * 32;
 
-  for (int i = tid; i < kBlockM * CH; i += blockDim.x) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const bool ok = q0 + r < T;
-    cp_async16(Qs + r * LD + c, qh + static_cast<size_t>(ok ? q0 + r : 0) * H + c, ok);
-  }
+  copy_rows<HT>(Qs, q + head * T * H, q0, kBlockM, T, H, tid, threads);
   cp_async_commit();
 
+  const int warp = tid / 32, lane = tid % 32;
+  const int row0 = q0 + warp * 16 + lane / 4;  // this thread's rows: row0, row0 + 8
+  KeyTileMask mask_words(mask, b, mask_b, mask_t, T, S, row0, lane);
+
   auto load_tile = [&](int tile, int stage, bool with_v) {
-    const int s0 = tile * kBlockN;
-    for (int i = tid; i < kBlockN * CH; i += blockDim.x) {
-      const int r = i / CH, c = (i % CH) * 8;
-      const bool ok = s0 + r < S;
-      const size_t src = static_cast<size_t>(ok ? s0 + r : 0) * H + c;
-      cp_async16(Ks + (stage * kBlockN + r) * LD + c, kh + src, ok);
-      if (with_v) cp_async16(Vs + (stage * kBlockN + r) * LD + c, vh + src, ok);
-    }
+    copy_rows<HT>(Ks + stage * kBlockN * LD, kh, tile * kBlockN, kBlockN, S, H, tid, threads);
+    if (with_v)
+      copy_rows<HT>(Vs + stage * kBlockN * LD, vh, tile * kBlockN, kBlockN, S, H, tid, threads);
     cp_async_commit();
   };
   const int tiles = (S + kBlockN - 1) / kBlockN;
-  // Streams every key tile through the two stages and calls body(tile,
-  // stage) on each in order, the next tile's copy in flight meanwhile.
+  // Streams every key tile through the two stages and calls body(stage,
+  // bits, live) on each in order, the next tile's copy (and mask) in
+  // flight meanwhile; `live` counts the n-tiles holding keys below S.
   auto stream = [&](bool with_v, auto&& body) {
     load_tile(0, 0, with_v);
+    mask_words.fetch(0);
     for (int j = 0; j < tiles; ++j) {
+      const float mcur[2] = {mask_words.next[0], mask_words.next[1]};
       if (j + 1 < tiles) {
         load_tile(j + 1, (j + 1) & 1, with_v);
+        mask_words.fetch(j + 1);
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
       }
       __syncthreads();
-      body(j, j & 1);
+      uint64_t bits[2];
+      mask_words.words(j, mcur, bits);
+      body(j & 1, bits, min(8, (S - j * kBlockN + 7) / 8));
       __syncthreads();  // the stage is refilled by the next iteration
     }
   };
 
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, c2 = 2 * (lane % 4);
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-  const float* mbase = mask + static_cast<size_t>(mask_b > 1 ? b : 0) * mask_t * S;
-  const float* mrow[2] = {
-      mbase + static_cast<size_t>(mask_t > 1 ? min(row0, T - 1) : 0) * S,
-      mbase + static_cast<size_t>(mask_t > 1 ? min(row1, T - 1) : 0) * S};
-
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t qf[HT][4];
-  load_rows<HT>(qf, Qs + warp * 16 * LD, LD, lane);
 
-  float sc[8][4];  // logits of one 16 x 64 tile
+  // Logits of one 16 x 64 tile; q's fragments are read from shared memory
+  // for each tile, not held across it, which leaves two blocks an SM.
+  float sc[8][4];
   auto logits = [&](int stage) {
+    uint32_t qf[HT][4];
+    load_rows<HT>(qf, Qs + warp * 16 * LD, LD, lane);
     tile_logits<HT>(sc, qf, Ks + stage * kBlockN * LD, LD, lane);
-  };
-  // Unnormalised weight of logit l at key s of row half h (kNegInf-masked
-  // with no cap, relative to the row max mx).
-  auto weight = [&](float l, int s, int h, float mx) {
-    const bool ok = __ldg(mrow[h] + s) >= kMaskThreshold;
-    if (cap > 0.f) return ok ? expf(cap * tanhf(l * inv_cap)) : 0.f;
-    return expf((ok ? l : kNegInf) - mx);
   };
 
   float mx[2] = {0.f, 0.f};
-  if (cap <= 0.f) {  // row max, as the TPU kernel takes it without a cap
+  if constexpr (!kCapped) {  // row max, as the TPU kernel takes it without a cap
     float m[2] = {-FLT_MAX, -FLT_MAX};
-    stream(false, [&](int j, int stage) {
+    stream(false, [&](int stage, const uint64_t (&bits)[2], int live) {
       logits(stage);
 #pragma unroll
-      for (int jn = 0; jn < 8; ++jn)
+      for (int jn = 0; jn < 8; ++jn) {
+        if (jn >= live) continue;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int s = j * kBlockN + jn * 8 + c2 + (e & 1), h = e >> 1;
-          if (s < S)
-            m[h] = fmaxf(m[h], __ldg(mrow[h] + s) >= kMaskThreshold ? sc[jn][e] : kNegInf);
-        }
+        for (int e = 0; e < 4; ++e)
+          m[e >> 1] = fmaxf(m[e >> 1], mask_bit(bits[e >> 1], jn, e) ? sc[jn][e] : -FLT_MAX);
+      }
     });
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -152,75 +152,97 @@ __global__ void __launch_bounds__(kWarps * 32)
     }
   }
 
+  // Pass one: the row sums, in K7's order.
   float sum[2] = {0.f, 0.f};
-  stream(false, [&](int j, int stage) {
+  stream(false, [&](int stage, const uint64_t (&bits)[2], int live) {
     logits(stage);
 #pragma unroll
-    for (int jn = 0; jn < 8; ++jn)
+    for (int jn = 0; jn < 8; ++jn) {
+      if (jn >= live) continue;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int s = j * kBlockN + jn * 8 + c2 + (e & 1), h = e >> 1;
-        if (s < S) sum[h] += weight(sc[jn][e], s, h, mx[h]);
+        float r;
+        const float w = logit_weight<kCapped>(sc[jn][e], mx[e >> 1], cc, r);
+        sum[e >> 1] += mask_bit(bits[e >> 1], jn, e) ? w : 0.f;
       }
+    }
   });
-  bool uniform[2];
+  RowScale rs[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
     sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
-    uniform[h] = sum[h] == 0.f;  // fully masked row (capped path)
+    rs[h] = row_scale(sum[h], S);
   }
-  const float inv_s = 1.f / static_cast<float>(S);
+  if (stats != nullptr && lane % 4 == 0) {
+    const int tp = (T + kStatRows - 1) / kStatRows * kStatRows;
+    const size_t plane = static_cast<size_t>(gridDim.y) * gridDim.z * tp;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + 8 * h;
+      if (r < tp) {
+        stats[head * tp + r] = mx[h];
+        stats[plane + head * tp + r] = sum[h];
+      }
+    }
+  }
 
+  // Pass two: the same weights, normalised, cast and multiplied into the
+  // output.
   float acc[2 * HT][4];
 #pragma unroll
   for (int i = 0; i < 2 * HT; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-  stream(true, [&](int j, int stage) {
-    logits(stage);
-    const bf16* vb = Vs + stage * kBlockN * LD;
+  // Each tile's logits in two halves of 32 keys (the same bits as whole:
+  // tile_logits), which keeps the registers of a half-tile of logits free
+  // beside the output accumulators.
+  stream(true, [&](int stage, const uint64_t (&bits)[2], int live) {
 #pragma unroll
-    for (int p = 0; p < 4; ++p) {  // 16 keys: n-tiles 2p and 2p + 1
-      float pr[2][4];
+    for (int half = 0; half < 2; ++half) {
+      float lh[4][4];
+      {
+        uint32_t qf[HT][4];
+        load_rows<HT>(qf, Qs + warp * 16 * LD, LD, lane);
+        tile_logits<HT, 4>(lh, qf, Ks + (stage * kBlockN + 32 * half) * LD, LD, lane);
+      }
 #pragma unroll
-      for (int half = 0; half < 2; ++half)
+      for (int p = 0; p < 2; ++p) {  // 16 keys at a time
+        float pr[2][4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int jn = 2 * p + half;
-          const int s = j * kBlockN + jn * 8 + c2 + (e & 1), h = e >> 1;
-          float w = 0.f;
-          if (s < S) w = uniform[h] ? inv_s : weight(sc[jn][e], s, h, mx[h]) / sum[h];
-          pr[half][e] = w;
+        for (int i = 0; i < 2; ++i) {
+          const int jn = 4 * half + 2 * p + i;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int h = e >> 1;
+            float w = 0.f;
+            if (jn < live) {
+              float r;
+              w = logit_weight<kCapped>(lh[2 * p + i][e], mx[h], cc, r);
+              w = mask_bit(bits[h], jn, e) ? w : 0.f;
+            }
+            pr[i][e] = normalise(w, rs[h]);
+          }
         }
-      const uint32_t a[4] = {pack_bf16x2(pr[0][0], pr[0][1]), pack_bf16x2(pr[0][2], pr[0][3]),
-                             pack_bf16x2(pr[1][0], pr[1][1]), pack_bf16x2(pr[1][2], pr[1][3])};
-#pragma unroll
-      for (int hp = 0; hp < HT; ++hp) {
-        uint32_t vf[4];
-        const int m = lane / 8;
-        ldsm_x4_trans(vf, vb + (p * 16 + lane % 8 + 8 * (m & 1)) * LD + hp * 16 + 8 * (m >> 1));
-        mma16816(acc[2 * hp], a, vf[0], vf[1]);
-        mma16816(acc[2 * hp + 1], a, vf[2], vf[3]);
+        uint32_t a[4];
+        pack_block(a, pr[0], pr[1]);
+        mma_rows<HT>(acc, a, Vs + stage * kBlockN * LD, LD, 2 * half + p, lane);
       }
     }
   });
-  store_rows<HT>(oh, acc, row0, T, lane);
+  store_rows<HT>(out + head * T * H, acc, row0, T, H, lane);
 }
 
-template <int HT>
+template <int HT, bool kCapped>
 cudaError_t launch_flash(const bf16* q, const bf16* k, const bf16* v, const float* mask,
-                         bf16* out, int batch, int heads, int T, int S, int mask_b, int mask_t,
-                         float cap, cudaStream_t stream) {
+                         bf16* out, float* stats, int batch, int heads, int T, int S, int H,
+                         int mask_b, int mask_t, float cap, cudaStream_t stream) {
   constexpr size_t smem = flash_smem_bytes<HT>();
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<HT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  cudaError_t err = set_max_dynamic_smem<flash_attention_kernel<HT, kCapped>>(smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((T + kBlockM - 1) / kBlockM, heads, batch);
-  const float inv_cap = cap > 0.f ? static_cast<float>(1.0 / cap) : 0.f;
-  flash_attention_kernel<HT><<<grid, kWarps * 32, smem, stream>>>(
-      q, k, v, mask, out, heads, T, S, mask_b, mask_t, cap, inv_cap);
+  flash_attention_kernel<HT, kCapped><<<grid, kWarps * 32, smem, stream>>>(
+      q, k, v, mask, out, stats, heads, T, S, H, mask_b, mask_t, cap_consts(cap));
   return cudaGetLastError();
 }
 
@@ -230,23 +252,29 @@ cudaError_t launch_flash(const bf16* q, const bf16* k, const bf16* v, const floa
 extern "C" {
 
 // K5: q [b, heads, t, h], k and v [b, heads, s, h], mask [mask_b, mask_t,
-// s] -> out [b, heads, t, h].  head_dim must be a multiple of 16, at most
-// 128.
+// s] -> out [b, heads, t, h], and (stats not null) each row's max and sum
+// of weights into stats [2][b * heads][t rounded up to 64].  head_dim must
+// be a multiple of 8, at most 128 (zero-padded to a multiple of 16 inside).
 int vp_flash_attention(const void* q, const void* k, const void* v, const void* mask, void* out,
-                       int batch, int heads, int t, int s, int head_dim, int mask_b, int mask_t,
-                       float logit_cap, void* stream) {
+                       void* stats, int batch, int heads, int t, int s, int head_dim,
+                       int mask_b, int mask_t, float logit_cap, void* stream) {
   using vp::bf16;
   const auto* qp = static_cast<const bf16*>(q);
   const auto* kp = static_cast<const bf16*>(k);
   const auto* vp_ = static_cast<const bf16*>(v);
   const auto* mp = static_cast<const float*>(mask);
   auto* op = static_cast<bf16*>(out);
+  auto* sp = static_cast<float*>(stats);
   auto st = static_cast<cudaStream_t>(stream);
-#define VP_FLASH_CASE(ht)                                                                    \
-  case 16 * ht:                                                                              \
-    return vp::launch_flash<ht>(qp, kp, vp_, mp, op, batch, heads, t, s, mask_b, mask_t,    \
-                                logit_cap, st);
-  switch (head_dim) {
+  if (t <= 0 || s <= 0 || head_dim <= 0 || head_dim % 8) return cudaErrorInvalidValue;
+#define VP_FLASH_CASE(ht)                                                                     \
+  case ht:                                                                                    \
+    return logit_cap > 0.f                                                                    \
+               ? vp::launch_flash<ht, true>(qp, kp, vp_, mp, op, sp, batch, heads, t, s,      \
+                                            head_dim, mask_b, mask_t, logit_cap, st)          \
+               : vp::launch_flash<ht, false>(qp, kp, vp_, mp, op, sp, batch, heads, t, s,     \
+                                             head_dim, mask_b, mask_t, logit_cap, st);
+  switch ((head_dim + 15) / 16) {
     VP_FLASH_CASE(1) VP_FLASH_CASE(2) VP_FLASH_CASE(3) VP_FLASH_CASE(4)
     VP_FLASH_CASE(5) VP_FLASH_CASE(6) VP_FLASH_CASE(7) VP_FLASH_CASE(8)
     default: return cudaErrorInvalidValue;
@@ -254,4 +282,33 @@ int vp_flash_attention(const void* q, const void* k, const void* v, const void* 
 #undef VP_FLASH_CASE
 }
 
+// The capped weight of mma_sync.cuh on n logits l (fp32), as every kernel
+// computes it at this cap (> 0): w = exp(cap tanh(l / cap)) and dt = 1 -
+// tanh(l / cap)^2; the check of the helper's accuracy.
+int vp_capped_weight(const void* l, void* w, void* dt, int n, float logit_cap, void* stream);
+
 }  // extern "C"
+
+namespace vp {
+namespace {
+
+__global__ void capped_weight_kernel(const float* __restrict__ l, float* __restrict__ w,
+                                     float* __restrict__ dt, int n, CapConsts cc) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float r;
+  w[i] = logit_weight<true>(l[i], 0.f, cc, r);
+  dt[i] = tanh_grad(r);
+}
+
+}  // namespace
+}  // namespace vp
+
+extern "C" int vp_capped_weight(const void* l, void* w, void* dt, int n, float logit_cap,
+                                void* stream) {
+  if (n <= 0 || !(logit_cap > 0.f)) return cudaErrorInvalidValue;
+  vp::capped_weight_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(l), static_cast<float*>(w), static_cast<float*>(dt), n,
+      vp::cap_consts(logit_cap));
+  return cudaGetLastError();
+}

@@ -4,8 +4,9 @@ path of ``videoprism_tpu.ops.attention``).
 Projection weights keep the checkpoint layout (D, N, H) for q/k/v and post.
 The projections are plain PyTorch products (XLA's in the JAX package).  The
 attention core is plain PyTorch with ``impl='xla'``; ``impl='flash'`` runs
-K5 (``ops/kernels/flash_attention.py``) where the JAX package's gate takes
-its Pallas kernel and the composed core elsewhere.  Short 'pre'-policy
+K5 (``ops/kernels/flash_attention.py``): on the card at every length, off
+it where the JAX package's gate takes its Pallas kernel, and the composed
+core elsewhere.  Short 'pre'-policy
 self-attention runs the fused attention block
 (``ops/kernels/transformer_block.py``) instead.  Inference only: no dropout.
 """
@@ -88,9 +89,11 @@ def multi_head_attention(
   Params: ``{'query'|'key'|'value': {'w': [D, N, H], 'b': [N, H]},
   'post': {'w': [Dq, N, H], 'b': [Dq]}, 'per_dim_scale': {...}}``.
 
-  ``impl='flash'`` runs K5 for the shapes its JAX gate takes
-  (``flash_attention.supports``), dispatched by ``kernel_impl`` ('auto' |
-  'kernel' | 'reference'); ``'xla'`` and other shapes run the composed core.
+  ``impl='flash'`` runs K5, dispatched by ``kernel_impl`` ('auto' |
+  'kernel' | 'reference'): on CUDA tensors at every T and S (K5 streams K
+  and V; the JAX gate's multiples of 128, ``flash_attention.supports``, are
+  TPU tiling, as K6's gate is), else for the shapes the JAX gate takes.
+  ``'xla'`` and other shapes run the composed core.
   """
   if impl not in ('xla', 'flash'):
     raise ValueError(f"impl must be 'xla' or 'flash', got {impl!r}")
@@ -111,7 +114,9 @@ def multi_head_attention(
   else:
     query = query * dim_per_head ** -0.5
 
-  if impl == 'flash' and flash.supports(query.shape[2], key.shape[2]):
+  on_card = query.is_cuda and kernel_impl != 'reference'
+  if impl == 'flash' and (on_card
+                          or flash.supports(query.shape[2], key.shape[2])):
     encoded = flash.fused_attention(
         query.contiguous(), key.contiguous(), value.contiguous(),
         atten_mask.squeeze(1).float().contiguous(), logit_cap=logit_cap,

@@ -48,6 +48,8 @@ LAUNCHES: collections.Counter = collections.Counter()
 CHUNK_LAUNCHES: collections.Counter = collections.Counter()
 # The launches of the flash backward (K7) that also emit the context.
 CTX_LAUNCHES: collections.Counter = collections.Counter()
+# The launches of the flash backward (K7) given K5's row statistics.
+STATS_LAUNCHES: collections.Counter = collections.Counter()
 
 # Argument codes of the C entry points: p pointer (or the stream), i int,
 # f float.  The stream is appended by launch().
@@ -57,8 +59,9 @@ _SIGNATURES = {
     'vp_spatial_to_temporal': 'ppppp' 'iiii' 'f' 'p',
     'vp_temporal_to_output': 'pppp' 'iiii' 'f' 'p',
     'vp_layer_norm': 'pppp' 'iii' 'f' 'p',
-    'vp_flash_attention': 'ppppp' 'iiiiiii' 'f' 'p',
-    'vp_flash_attention_bwd': 'pppppppppp' 'iiiiiii' 'f' 'p',
+    'vp_flash_attention': 'pppppp' 'iiiiiii' 'f' 'p',
+    'vp_flash_attention_bwd': 'ppppppppppp' 'iiiiiii' 'f' 'p',
+    'vp_capped_weight': 'ppp' 'i' 'f' 'p',
     'vp_int8_ffn_block': 'p' * 17 + 'iiiii' 'f' 'p',
     'vp_int8_attention_block': 'p' * 24 + 'i' * 8 + 'fff' 'p',
     'vp_int8_layer_block': 'p' * 37 + 'i' * 11 + 'fff' 'p',
@@ -73,6 +76,7 @@ def reset_launches() -> None:
   LAUNCHES.clear()
   CHUNK_LAUNCHES.clear()
   CTX_LAUNCHES.clear()
+  STATS_LAUNCHES.clear()
 
 
 def use_kernel(impl: str, x: torch.Tensor) -> bool:

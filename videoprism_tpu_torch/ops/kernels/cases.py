@@ -160,27 +160,34 @@ def flash_case(b: int, heads: int, t: int, s: int, head_dim: int, *,
 
 def flash_bwd_case(b: int, heads: int, t: int, s: int, head_dim: int, *,
                    cap: float, mask: str, with_ctx: bool, device,
-                   seed: int = 0) -> Case:
+                   stats: bool = False, seed: int = 0) -> Case:
   """K7 on :func:`flash_case`'s inputs and masks, with a seeded output
-  cotangent dO [b, heads, t, head_dim]."""
+  cotangent dO [b, heads, t, head_dim]; with ``stats`` (a CUDA device) it
+  is given K5's row statistics of those inputs, as under autograd."""
   fwd = flash_case(b, heads, t, s, head_dim, cap=cap, mask=mask,
                    device=device, seed=seed)
   do = np.random.default_rng(seed + 1).standard_normal((b, heads, t, head_dim))
   label = fwd.label + (' with ctx' if with_ctx else '')
+  kwargs = dict(logit_cap=cap, with_ctx=with_ctx)
+  if stats:
+    _, kwargs['stats'] = flash._fused_attention(*fwd.args, cap, 'kernel',
+                                                with_stats=True)
+    label += " given K5's statistics"
   return Case('fused_attention_bwd', label, flash.fused_attention_bwd,
-              (*fwd.args, _tensor(do, device)),
-              dict(logit_cap=cap, with_ctx=with_ctx))
+              (*fwd.args, _tensor(do, device)), kwargs)
 
 
 def flash_bwd_path_cases(device, *, batch: int = 2) -> list[Case]:
   """K7 at the lvt base train step's shapes for ``batch`` clips: the
-  auxiliary encoder's (no ctx, cap 50), the spatial and temporal stacks'
-  and the causal text tower's (with ctx); a fully masked query row (a
-  fully padded sequence); no cap."""
+  auxiliary encoder's (no ctx, cap 50, given K5's statistics as the step
+  gives them), the spatial and temporal stacks' and the causal text
+  tower's (with ctx); a fully masked query row (a fully padded sequence);
+  no cap; and with ctx at vc giant's spatial shape (16 heads of 88, for
+  ``batch`` clips of 8 frames)."""
   kw = dict(head_dim=64, device=device)
   return [
       flash_bwd_case(batch, 12, 4096, 4096, cap=50.0, mask='none',
-                     with_ctx=False, **kw),
+                     with_ctx=False, stats=True, **kw),
       flash_bwd_case(16 * batch, 12, 256, 256, cap=50.0, mask='none',
                      with_ctx=True, **kw),
       flash_bwd_case(256 * batch, 12, 16, 16, cap=50.0, mask='none',
@@ -191,6 +198,8 @@ def flash_bwd_path_cases(device, *, batch: int = 2) -> list[Case]:
                      with_ctx=True, **kw),
       flash_bwd_case(16 * batch, 12, 256, 256, cap=0.0, mask='keys',
                      with_ctx=True, **kw),
+      flash_bwd_case(8 * batch, GIANT[1], 256, 256, head_dim=GIANT[2],
+                     cap=50.0, mask='none', with_ctx=True, device=device),
   ]
 
 
@@ -272,15 +281,17 @@ def clip_path_cases(device, *, batch: int = 2, d: int = 768,
                     text_len: int = 65) -> list[Case]:
   """The kernels the CLIP model adds, at lvt base's shapes for ``batch``
   requests: K5 over the auxiliary encoder's tokens (cap 50 and 0, with
-  fully masked rows), K6 at the aux pre-LN's rows and at an odd row count
-  (both scale conventions), K1 with the text tower's causal + padding mask
-  at its unpadded length."""
+  fully masked rows; at lvt base's head dim and at giant's 88, which K5
+  pads to 96), K6 at the aux pre-LN's rows and at an odd row count (both
+  scale conventions), K1 with the text tower's causal + padding mask at
+  its unpadded length."""
   hd = d // heads
   cases = []
   for cap in (50.0, 0.0):
     for mask in ('keys', 'rows'):
-      cases.append(flash_case(batch, heads, tokens, tokens, hd, cap=cap,
-                              mask=mask, device=device))
+      for head_dim in (hd, GIANT[2]):
+        cases.append(flash_case(batch, heads, tokens, tokens, head_dim,
+                                cap=cap, mask=mask, device=device))
     cases.append(attention_case(batch, text_len, d, heads, hd, cap=cap,
                                 padded=True, causal=True, device=device))
   for rows in (batch * tokens, 130):

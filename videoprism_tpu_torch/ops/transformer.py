@@ -201,7 +201,8 @@ def _int8_layer(params: Params, inputs: torch.Tensor,
   head dims the port serves) takes K12a + K5 + K12b where that is the same
   arithmetic (one head group; K11 also one
   F-chunk, its FFN half then being K9's), and raises ``ValueError`` naming
-  the limit otherwise, or where K5 cannot take the head dim (giant's 88).
+  the limit otherwise, or where K5 cannot take the head dim (not a
+  multiple of 8; every config's is, giant's 88 too).
   The conditions of the reference's route that the port's layer config
   cannot break (inference, the 'pre' policy, residual weight 1, biases)
   are not asked again."""
@@ -246,12 +247,12 @@ def _int8_layer(params: Params, inputs: torch.Tensor,
     if layer:
       ffn_chunks = 1
     layer, attn_chunks, projected = None, None, True
-  if projected and on_card and h % 16:
+  if projected and on_card and h % 8:
     raise ValueError(
         f'T={t} at head dim {h}: the int8 attention block holds T <= '
         f'{min(_lib.max_attention_t(h), MAX_FUSED_ATTENTION_T)} at this '
         'head dim, and the long-sequence route (K12a + K5 + K12b) takes '
-        'head dims that are multiples of 16 only')
+        'head dims that are multiples of 8 only')
   if layer:
     pads = (paddings.reshape(b, t, 1).to(dtype) if paddings is not None
             else torch.zeros((b, t, 1), dtype=dtype, device=inputs.device))
@@ -324,8 +325,9 @@ def transformer_layer(params: Params, inputs: torch.Tensor,
   composed FFN because no chunking fits its VMEM, the port keeps K2, which
   takes any row count.  On the card, a sequence that K1's attention core
   does not take (``_lib.attention_fits``), or past the route's 1024 tokens,
-  takes the composed half, and raises ``ValueError`` naming the limit where
-  K5 cannot take the head dim either (giant's 88).
+  takes the composed half (K6 + K5; giant's 88 too), and raises
+  ``ValueError`` naming the limit where K5 cannot take the head dim either
+  (not a multiple of 8).
   """
   _check_policy(cfg)
   dtype = cfg.dtype
@@ -376,12 +378,12 @@ def transformer_layer(params: Params, inputs: torch.Tensor,
         cast(fused['wqkv']), cast(fused['bqkv']), cast(fused['wo']),
         cast(attn['post']['b']), **kw)
   else:   # the composed attention half: K6 LN, K5 attention, residual
-    if on_card and h % 16:
+    if on_card and h % 8:
       raise ValueError(
           f'T={t} at head dim {h}: the fused attention kernel holds T <= '
           f'{min(_lib.max_attention_t(h), MAX_FUSED_ATTENTION_T)} at this '
           'head dim, and the long-sequence attention kernel (K5) takes head '
-          'dims that are multiples of 16 only')
+          'dims that are multiples of 8 only')
     normed = basic.layer_norm(params['layer_norm'], inputs, dtype=dtype,
                               impl=impl)
     x = inputs + attention_lib.multi_head_attention(
