@@ -11,6 +11,10 @@ result):
                   allowed in K5's and K7's kernels up to H = 96), and the
                   longest sequence K1's attention core takes per head dim
                   (it streams K and V: no limit below the route's 1024);
+     host         a K6 call's host time by part (use_kernel,
+                  check_tensors, empty_like, launch, the whole call), 1000
+                  calls each without a synchronize (``--host``: this phase
+                  alone, which runs on an older tree too);
      gemm         the wgmma + TMA GEMM of K1, K2, K8a and K8b alone at the
                   base encoder's four products (QKV, output projection,
                   W1, W2) with their epilogues, at B = 8 and B = 1 clips
@@ -18,6 +22,11 @@ result):
                   its max error against the fp32 product with the same
                   epilogue, and torch.matmul's time on the same operands
                   (a yardstick the port never calls);
+     gemm-i8      the s8 wgmma + TMA GEMM of K9-K12b alone at the int8
+                  encoder's products (K-major weights): the int32 mode
+                  torch.equal to torch._int_mm, each epilogue against its
+                  fp32 formula, TOP/s beside torch._int_mm's (B row-major
+                  and TN) and the bf16 GEMM's on the same shape;
   3. kernels      every kernel against its plain twin at the shapes of the
                   encoder, CLIP, classifier and int8 paths for two requests
                   (K5 also at giant's H = 88; K9 and K10 also at 2 chunks,
@@ -46,7 +55,11 @@ result):
                   layer at T = 1032 takes K12a + K5 + K12b;
                   each agrees with the plain path; a giant-width attention
                   block's backward (K8a, K7 at H = 88 with ctx) agrees with
-                  the plain path's gradient by the [train] rule;
+                  the plain path's gradient by the [train] rule; then a
+                  layer of 32 heads of 36 (a head dim off a multiple of 8,
+                  padded to 40): float through K1 (T = 1024) and K6 + K5
+                  (T = 1032), int8 through K10 over 2 head groups, and a
+                  K8a block's backward through K7, likewise;
   5. model        get_model('videoprism_public_v1_base') in bf16 with seeded
                   random weights answers three requests (1, 2 and 8 clips of
                   16x288x288x3) through the kernels: [B, 4096, 768], finite,
@@ -161,6 +174,7 @@ from videoprism_tpu_torch.ops import transformer as transformer_lib
 from videoprism_tpu_torch.ops.kernels import _lib
 from videoprism_tpu_torch.ops.kernels import cases as cases_lib
 from videoprism_tpu_torch.ops.kernels import flash_attention as flash_lib
+from videoprism_tpu_torch.ops.kernels import int8_blocks as i8
 from videoprism_tpu_torch.ops.kernels import transformer_block as tb
 from videoprism_tpu_torch.train import objectives
 from videoprism_tpu_torch.train import train_step as train_lib
@@ -264,10 +278,12 @@ FLASH_KERNELS = ('flash_attention_kernel', 'flash_bwd_query_kernel',
 # and absolute error of 1 - tanh^2.
 WEIGHT_RTOL = 2e-5
 TANH_GRAD_ATOL = 2e-5
-DEVICE_KERNELS = ('ln_rows_kernel', 'gemm_bf16_kernel',
-                  'capped_attention_kernel', 'flash_attention_kernel',
-                  'quant_rows_kernel', 'gemm_i8_kernel',
-                  'flash_bwd_query_kernel', 'flash_bwd_key_kernel')
+DEVICE_KERNELS = ('ln_rows_kernel', 'ln_rows_stream_kernel',
+                  'gemm_bf16_kernel', 'capped_attention_kernel',
+                  'flash_attention_kernel', 'quant_rows_kernel',
+                  'quant_rows_f32_kernel', 'quant_rows_stream_kernel',
+                  'gemm_i8_kernel', 'flash_bwd_query_kernel',
+                  'flash_bwd_key_kernel')
 _ENCODER = {'fused_attention_block': 16, 'fused_ffn_block': 16,
             'spatial_to_temporal': 1, 'temporal_to_output': 1}
 PER_FORWARD = {k: _ENCODER.get(k, 0) for k in KERNELS}
@@ -393,23 +409,27 @@ def phase_build() -> None:
         f'(load {time.perf_counter() - start:.1f} s)')
   kernel, spills, spilled = None, '', []
   for line in build.log.splitlines():
+    if 'Performance Loss' in line:   # ptxas: e.g. wgmma serialized
+      print(f'[build] {line.strip()}')
     if 'Compiling entry function' in line:
       kernel = next((k for k in DEVICE_KERNELS if k in line), None)
-      template = re.search(r'ILi(\d+)E(?:Lb([01])E)?', line)
-      ht = int(template.group(1)) if kernel and template else 0
-      if kernel and template:
-        kernel += f'<{ht}' + (
+      template = re.search(r'I((?:Li\d+E)+)(?:Lb([01])E)?', line)
+      ints = re.findall(r'Li(\d+)E', template.group(1)) if template else []
+      ht = int(ints[0]) if kernel and ints else 0
+      if kernel and ints:
+        kernel += f'<{", ".join(ints)}' + (
             '' if template.group(2) is None
             else ', capped' if template.group(2) == '1' else ', no cap') + '>'
-      elif kernel == 'quant_rows_kernel':
-        kernel += ('<bf16>' if 'quant_rows_kernelI13__nv_bfloat16E' in line
-                   else '<float>')
+      elif kernel == 'quant_rows_stream_kernel':
+        kernel += ('<bf16>' if '__nv_bfloat16' in line else '<float>')
       spills = ''
-    m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', line)
+    m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                  r'(\d+) bytes spill loads', line)
     if m and kernel:
-      spills = f'spills {m.group(1)}/{m.group(2)} B'
+      spills = (f'stack frame {m.group(1)} B, spills {m.group(2)}/'
+                f'{m.group(3)} B')
       if kernel.startswith(FLASH_KERNELS) and ht <= 6 and (
-          int(m.group(1)) or int(m.group(2))):
+          int(m.group(2)) or int(m.group(3))):
         spilled.append(kernel)
     m = re.search(r'Used (\d+) registers.*?(?:(\d+) bytes smem)?$', line)
     if m and kernel:
@@ -472,6 +492,121 @@ def phase_gemm(device) -> None:
             f'ms, {flops / mm_ms / 1e9:.1f} TFLOP/s')
       check(ok, f'GEMM {name} at B={b} disagrees with the fp32 product')
       del a, w, res, got, want
+
+
+def phase_gemm_i8(device) -> None:
+  """The int8 GEMM of K9-K12b alone (s8 wgmma on TMA tiles, K-major
+  weights) at the int8 base encoder's four products (q|k|v as one), B = 8
+  and B = 1: the int32 mode torch.equal to torch._int_mm, each epilogue
+  against its fp32 formula; TOP/s beside torch._int_mm's (B row-major and
+  the transposed view of a K-major B, the TN layout) and beside the bf16
+  GEMM's on the same [M, K, N] (yardsticks, not called by the port)."""
+  gen = torch.Generator(device=device).manual_seed(1)
+  i8r = lambda *s: torch.randint(-127, 128, s, generator=gen,
+                                 dtype=torch.int8, device=device)
+  for b in (8, 1):
+    m = b * 4096
+    for name, n, k, epilogue in GEMM_PRODUCTS:
+      a, w = i8r(m, k), i8r(n, k)   # w K-major [N, K]
+      a_scale = torch.rand((m,), generator=gen, device=device) * 1e-2 + 1e-3
+      b_scale = torch.rand((n,), generator=gen, device=device) * 1e-2 + 1e-3
+      bias = (0.1 * torch.randn((n,), generator=gen, device=device)).bfloat16()
+      pads = (torch.rand((m, 1), generator=gen, device=device)
+              < 0.1).bfloat16()
+      res = torch.randn((m, n), generator=gen, device=device).bfloat16()
+      kw = dict(a_scale=a_scale, b_scale=b_scale, bias=bias, **{
+          'qkv': dict(col_scale=0.125, scaled_cols=n // 3),
+          'residual': dict(pads=pads, residual=res),
+          'act_keep': dict(pads=pads, activation='gelu')}[epilogue])
+      exact = torch._int_mm(a, w.t())
+      raw = i8.gemm_i8(a, w)
+      same = torch.equal(raw, exact)
+      got = i8.gemm_i8(a, w, epilogue=epilogue, **kw).float()
+      want = exact.float() * a_scale[:, None] * b_scale + bias.float()
+      keep = 1.0 - pads.float()
+      if epilogue == 'qkv':
+        want[:, :n // 3] *= 0.125
+      elif epilogue == 'residual':
+        want = want * keep + res.float()
+      else:
+        want = torch.nn.functional.gelu(want) * keep
+      err = (got - want).abs().max().item()
+      ok = bool(torch.allclose(got, want, atol=cases_lib.ATOL,
+                               rtol=cases_lib.RTOL))
+      ms = cuda_ms(lambda: i8.gemm_i8(a, w, epilogue=epilogue, **kw),
+                   warmup=3, iters=20)
+      raw_ms = cuda_ms(lambda: i8.gemm_i8(a, w), warmup=3, iters=20)
+      w_kn = w.t().contiguous()
+      mm_ms = cuda_ms(lambda: torch._int_mm(a, w_kn), warmup=3, iters=20)
+      tn_ms = cuda_ms(lambda: torch._int_mm(a, w.t()), warmup=3, iters=20)
+      a16, w16 = a.bfloat16(), w_kn.bfloat16()
+      bf16_kw = {'qkv': dict(bias=bias, col_scale=0.125, scaled_cols=n // 3),
+                 'residual': dict(bias=bias, pads=pads, residual=res),
+                 'act_keep': dict(bias=bias, pads=pads, activation='gelu')}[
+                     epilogue]
+      bf16_ms = cuda_ms(lambda: tb.gemm_bf16(a16, w16, epilogue=epilogue,
+                                             **bf16_kw), warmup=3, iters=20)
+      ops = 2.0 * m * n * k
+      rate = lambda t: f'{ops / t / 1e9:.1f}'
+      print(f'[gemm-i8] B={b} {name} [{m}, {k}] @ [{n}, {k}]^T ({epilogue}):'
+            f' {ms:.4f} ms, {rate(ms)} TOP/s (int32 mode {raw_ms:.4f} ms, '
+            f'{rate(raw_ms)}); int32 torch.equal to torch._int_mm '
+            f'{"yes" if same else "NO"}; {epilogue} max err vs fp32 '
+            f'{err:.3g} {"ok" if ok else "FAIL"}; torch._int_mm row-major B '
+            f'{mm_ms:.4f} ms ({rate(mm_ms)}), TN {tn_ms:.4f} ms '
+            f'({rate(tn_ms)}); bf16 GEMM same epilogue {bf16_ms:.4f} ms '
+            f'({rate(bf16_ms)} TFLOP/s), int8 / bf16 rate '
+            f'{bf16_ms / ms:.2f}x')
+      check(same, f'int8 GEMM {name} at B={b}: int32 sums differ from '
+            'torch._int_mm')
+      check(ok, f'int8 GEMM {name} at B={b} ({epilogue}) disagrees with the '
+            'fp32 formula')
+      del a, w, w_kn, a16, w16, res, got, want, exact, raw
+
+
+def host_breakdown(device) -> None:
+  """A K6 call's host time by part: 1000 calls of each part, no
+  synchronize (the launches queue), time.perf_counter_ns per call.  The
+  parts are what the wrapper runs: use_kernel, check_tensors, empty_like,
+  launch, then the whole fused_layer_norm_2d.  Runs on any tree whose
+  _lib has these entry points (``--host`` runs this phase alone)."""
+  case = cases_lib.layer_norm_case(130, 768, direct_scale=False,
+                                   device=device)
+  x, scale, bias = case.args
+  out = torch.empty_like(x)
+  rows, d = x.shape
+  dev = x.device
+  parts = {
+      'use_kernel': lambda: _lib.use_kernel('auto', x),
+      'check_tensors': lambda: _lib.check_tensors(dev, x=x, scale=scale,
+                                                  bias=bias),
+      'empty_like': lambda: torch.empty_like(x),
+      'launch': lambda: _lib.launch('vp_layer_norm', dev, x, scale, bias, out,
+                                    rows, d, 0, 1e-6),
+      'whole call': lambda: case.fn(*case.args, **case.kwargs),
+  }
+  if hasattr(_lib, '_entry'):   # the launch's own parts
+    c_fn = _lib._entry('vp_layer_norm')[0]
+    current, raw_stream = _lib._device_queries()
+    ptrs = [t.data_ptr() for t in (x, scale, bias, out)]
+    parts.update({
+        'launch: current device': current,
+        'launch: raw stream': lambda: raw_stream(0),
+        'launch: the C call alone': lambda: c_fn(*ptrs, rows, d, 0, 1e-6,
+                                                 raw_stream(0)),
+    })
+  us = {}
+  for name, fn in parts.items():
+    for _ in range(50):
+      fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter_ns()
+    for _ in range(1000):
+      fn()
+    us[name] = (time.perf_counter_ns() - start) / 1000 / 1000.0
+    torch.cuda.synchronize()
+  print('[host] K6 [130, 768] host time per call (1000 calls, no '
+        'synchronize): ' + ', '.join(f'{k} {v:.2f} us' for k, v in us.items()))
 
 
 def _library_layer_norm(case):
@@ -631,13 +766,20 @@ def phase_kernels(device) -> dict[tuple[str, str | None], dict]:
       library_ms = cuda_ms(_library_layer_norm(case), warmup=3, iters=20)
       library_dev_ms = device_ms(_library_layer_norm(case), iters=10)
     elif case.kernel.startswith('int8_'):
-      library_ms = cuda_ms(cases_lib.int8_library(case), warmup=3, iters=20)
+      # The faster of B row-major and B K-major (the TN layout).
+      layouts = {layout: cuda_ms(cases_lib.int8_library(case, layout),
+                                 warmup=3, iters=20)
+                 for layout in cases_lib.INT8_LIBRARY_LAYOUTS}
+      library_layout = min(layouts, key=layouts.get)
+      library_ms = layouts[library_layout]
     bound_ms, bound_by = cases_lib.bound(case)
     library = 'none' if library_ms is None else f'{library_ms:.4f} ms'
     if library_dev_ms is not None:
       library += f' (device {library_dev_ms:.4f} ms)'
     if case.kernel.startswith('int8_'):
-      library = f'torch._int_mm over its products {library}'
+      library = (f'torch._int_mm over its products {library} ('
+                 + ', '.join(f'{k} {v:.4f}' for k, v in layouts.items())
+                 + ')')
     print(f'[kernels] time {case.kernel} {case.label}: kernel {ms:.4f} ms '
           f'(device {dev_ms:.4f} ms), plain twin {plain_ms:.4f} ms, library '
           f'{library}, bound {bound_ms:.4f} ms ({bound_by})')
@@ -646,6 +788,8 @@ def phase_kernels(device) -> dict[tuple[str, str | None], dict]:
                        ('plain_ms', plain_ms),
                        ('library_ms', library_ms),
                        ('library_device_ms', library_dev_ms),
+                       ('library_layout', library_layout
+                        if case.kernel.startswith('int8_') else None),
                        ('bound_ms', bound_ms),
                        ('bound_by', bound_by)):
       rec.setdefault(key, value)
@@ -861,14 +1005,14 @@ def _gate_layer(label: str, params, cfg, b: int, t: int, d: int,
   check(cos >= MIN_COSINE, f'{label} at T={t}: cosine {cos} < {MIN_COSINE}')
 
 
-def _gate_block_backward(device) -> None:
-  """A giant-width attention block's backward (K8a over 2 head groups at
-  vc giant's spatial shape for two clips, then K7 at H = 88 with the
-  context) against the plain path's (autograd through the twin) in fp32,
-  by [train]'s rule: the cosine of the whole gradient and of each operand's
-  at TRAIN_MIN_COSINE / TRAIN_MIN_LEAF_COSINE, or within FP32_ERR_RATIO of
-  the bf16 plain path's distance."""
-  d, heads, hd = cases_lib.GIANT[:3]
+def _gate_block_backward(device, label: str, d: int, heads: int,
+                         hd: int) -> None:
+  """An attention block's backward (K8a over 2 head groups on 16
+  sequences of 256 tokens, then K7 with the context) against the plain
+  path's (autograd through the twin) in fp32, by [train]'s rule: the
+  cosine of the whole gradient and of each operand's at TRAIN_MIN_COSINE /
+  TRAIN_MIN_LEAF_COSINE, or within FP32_ERR_RATIO of the bf16 plain path's
+  distance."""
   case = cases_lib.attention_case(16, 256, d, heads, hd, cap=50.0,
                                   padded=True, chunks=2, device=device)
   gen = torch.Generator(device=device).manual_seed(7)
@@ -897,19 +1041,19 @@ def _gate_block_backward(device) -> None:
                 torch.cat([g.flatten() for g in want32]))
   leaves = {n: (cos(a, c), cos(b, c))
             for n, a, b, c in zip(names, got, want16, want32)}
-  print(f'[gate] giant-width attention block backward {case.label}: '
+  print(f'[gate] {label} attention block backward {case.label}: '
         f'launches {routed}, K7 with ctx {ctx}; gradient cosine vs the fp32 '
         f'plain path {whole:.6f} (bf16 plain path {whole16:.6f}); per '
         'operand (kernels, bf16 plain path): '
         + ', '.join(f'{n} {a:.6f}/{b:.6f}' for n, (a, b) in leaves.items()))
   check(routed == {'fused_attention_block_chunked': 1,
                    'fused_attention_bwd': 1} and ctx == 1,
-        f'giant block backward routed to {routed} (K7 with ctx {ctx})')
+        f'{label} block backward routed to {routed} (K7 with ctx {ctx})')
   check(near(whole, whole16, TRAIN_MIN_COSINE),
-        f'giant block gradient cosine {whole} (bf16 plain path {whole16})')
+        f'{label} block gradient cosine {whole} (bf16 plain path {whole16})')
   bad = {n: v for n, v in leaves.items()
          if not near(*v, TRAIN_MIN_LEAF_COSINE)}
-  check(not bad, f'giant block operand gradients off: {bad}')
+  check(not bad, f'{label} block operand gradients off: {bad}')
 
 
 def phase_gate(device) -> None:
@@ -961,7 +1105,61 @@ def phase_gate(device) -> None:
               cfg, b, t, d, {'int8_qkv_projection': 1, 'fused_attention': 1,
                              'int8_out_projection': 1,
                              'int8_ffn_block_chunked': 1}, gen, device)
-  _gate_block_backward(device)
+  _gate_block_backward(device, 'giant-width', *cases_lib.GIANT[:3])
+  _gate_odd_head_dim(device, gen)
+
+
+# A layer whose head dim is not a multiple of 8: 32 heads of 36 at D = 1152
+# (a multiple of 128, so that the reference's int8 route exists).
+ODD_HEADS = (1152, 32, 36, 4608)
+
+
+def _gate_odd_head_dim(device, gen) -> None:
+  """ROADMAP fault 3.2's last gap: a head dim that is not a multiple of 8
+  (36, padded to 40 by prepare_for_kernels, exact zeros): the float layer
+  through K1 at T = 1024 and through K6 + K5 past the fused route (T =
+  1032), the int8 layer through K10 over the reference's 2 head groups
+  (two clips of 256 tokens), each against the plain path; then a K8a
+  block's backward through K7 at H = 36 (the wrappers pad)."""
+  d, heads, hd, f = ODD_HEADS
+  cfg = transformer_lib.TransformerLayerConfig(
+      num_layers=1, hidden_dim=f, num_heads=heads, activation='gelu',
+      enable_per_dim_scale=False, logit_cap=50.0, dtype=torch.bfloat16)
+  tree = {'layer': init_lib._Init(0, 0.1).layer(d, cfg)}
+  params = prepare_for_kernels(params_from_numpy(
+      tree, device=device, dtype=torch.bfloat16))['layer']
+  hp = tb.padded_head_dim(hd)
+  check(params['self_attention']['fused']['wqkv'].shape[-1] == 3 * heads * hp,
+        f'head dim {hd} not padded to {hp} in the fused weights')
+  b = 1
+  for t in (transformer_lib.MAX_FUSED_ATTENTION_T,
+            transformer_lib.MAX_FUSED_ATTENTION_T + 8):
+    attn, ffn = transformer_lib.chunk_plan(b, t, d, heads, hd, f, 2,
+                                           causal=False)
+    if t <= transformer_lib.MAX_FUSED_ATTENTION_T:
+      want_routes = {('fused_attention_block_chunked' if attn
+                      else 'fused_attention_block'): 1}
+    else:
+      want_routes = {'fused_layer_norm_2d': 1, 'fused_attention': 1}
+    want_routes[('fused_ffn_block_chunked' if ffn
+                 else 'fused_ffn_block')] = 1
+    _gate_layer(f'layer, {heads} heads of {hd}', params, cfg, b, t, d,
+                want_routes, gen, device)
+  b, t = 2, 256
+  plan = transformer_lib.int8_plan(b, t, d, heads, hd, f, 2, causal=False)
+  check(plan.layer is None and plan.attn_chunks and plan.ffn_chunks,
+        f'int8 route at [{b}, {t}], H={hd} is {plan}')
+  params = prepare_for_kernels(params_from_numpy(
+      quantization.quantize_for_serving(tree), device=device,
+      dtype=torch.bfloat16))['layer']
+  _lib.reset_launches()
+  _gate_layer(f'int8 layer, {heads} heads of {hd}', params, cfg, b, t, d,
+              {'int8_attention_block_chunked': 1,
+               'int8_ffn_block_chunked': 1}, gen, device)
+  check(_lib.CHUNK_LAUNCHES['int8_attention_block_chunked',
+                            plan.attn_chunks] == 1,
+        f'int8 layer at H={hd}: K10 not over {plan.attn_chunks} head groups')
+  _gate_block_backward(device, f'{heads} heads of {hd}', d, heads, hd)
 
 
 def _leaves(tree):
@@ -1570,7 +1768,11 @@ def main() -> int:
   name, smi = phase_device()
   device = torch.device('cuda', 0)
   phase_build()
+  host_breakdown(device)
+  if sys.argv[1:] == ['--host']:
+    return 0
   phase_gemm(device)
+  phase_gemm_i8(device)
   record = phase_kernels(device)
   phase_gate(device)
   model, params, encoder_launches = phase_model(device)
@@ -1624,7 +1826,8 @@ def main() -> int:
                         plain_ms=rec['plain_ms'], bound_ms=rec['bound_ms'],
                         bound_by=rec['bound_by'],
                         library_ms=rec['library_ms'],
-                        library_device_ms=rec['library_device_ms']))
+                        library_device_ms=rec['library_device_ms'],
+                        library_layout=rec['library_layout']))
   print(smi)
   print(json.dumps({'kernels': kernels}))
   print(json.dumps({'ok': True, 'device': {

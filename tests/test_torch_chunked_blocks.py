@@ -328,9 +328,9 @@ class TestCapacityGate:
   @pytest.mark.parametrize('h,routes', [(24, 'composed'), (20, 'raises')])
   def test_layer_past_capacity(self, monkeypatch, h, routes):
     """Past K1's capacity the kernel path takes the composed half (K6 +
-    K5) where K5 takes the head dim (a multiple of 8: 24, not a multiple of
-    16, as giant's 88), and raises naming the limit where it does not
-    (20)."""
+    K5) where K5 takes the head dim (24, a multiple of 8 but not of 16, as
+    giant's 88; and 20, padded to 24), and raises naming the limit where
+    it does not (20 with K5's maximum replaced by 16)."""
     n, t = 4, 800
     p = _layer(8, n, h)
     composed = []
@@ -350,9 +350,9 @@ class TestCapacityGate:
     call = lambda: ttfm.transformer_layer(
         jax.tree.map(torch.from_numpy, p), x, None,
         torch.zeros((1, 1, 1, t)), cfg)
+    call()
+    assert composed == [1]
     if routes == 'raises':
-      with pytest.raises(ValueError, match=r'T <= 784.*multiples of 8'):
+      monkeypatch.setattr(ttfm.flash, 'MAX_HEAD_DIM', 16)
+      with pytest.raises(ValueError, match=r'T <= 784.*at most 16'):
         call()
-    else:
-      call()
-      assert composed == [1]

@@ -130,6 +130,24 @@ def test_dispatch_on_the_cpu():
   assert torch.equal(auto, ref)
   with pytest.raises(ValueError, match='CUDA'):
     tflash.fused_attention(q, k, v, mask, impl='kernel')
+  # On the card K5 and K7 zero-pad a head dim off a multiple of 8 (12 ->
+  # 16) and slice their outputs back: on the twins, the same function.
+  q, k, v, mask = map(torch.from_numpy, _inputs(2, 2, 24, 24, 12, 'rows'))
+  do = torch.from_numpy(np.random.default_rng(5).standard_normal(
+      q.shape).astype(np.float32))
+  pad = tflash._pad
+  assert pad(q).shape[-1] == 16
+  for got, want in (
+      ((tflash.fused_attention(pad(q), pad(k), pad(v), mask,
+                               logit_cap=50.0),),
+       (tflash.fused_attention(q, k, v, mask, logit_cap=50.0),)),
+      (tflash.fused_attention_bwd(pad(q), pad(k), pad(v), mask, pad(do),
+                                  logit_cap=50.0, with_ctx=True),
+       tflash.fused_attention_bwd(q, k, v, mask, do, logit_cap=50.0,
+                                  with_ctx=True))):
+    for g, w in zip(got, want):
+      np.testing.assert_allclose(g[..., :12].numpy(), w.numpy(), atol=1e-6,
+                                 rtol=0)
   with pytest.raises(ValueError, match="'xla' or 'flash'"):
     tattn.multi_head_attention({}, q, q, q, mask, hidden_dim=16,
                                num_heads=1, impl='pallas')

@@ -161,8 +161,14 @@ def test_dispatch_counts_and_refusals(device):
     case.fn(case.args[0].float(), *case.args[1:], **case.kwargs)
   with pytest.raises(ValueError, match='contiguous'):
     case.fn(case.args[0].transpose(0, 1), *case.args[1:], **case.kwargs)
-  with pytest.raises(ValueError, match='dim_per_head'):
-    case.fn(*case.args, **dict(case.kwargs, num_heads=32, dim_per_head=4))
+  # A head dim off a multiple of 8 (32 heads of 4) runs padded to 8; one
+  # past the attention core's 128 raises, naming it.
+  _check_all([dataclasses.replace(
+      case, kwargs=dict(case.kwargs, num_heads=32, dim_per_head=4))])
+  wide = cases_lib.attention_case(1, 16, 136, 1, 136, cap=50.0,
+                                  padded=False, device=device)
+  with pytest.raises(ValueError, match='at most 128'):
+    wide.fn(*wide.args, **wide.kwargs)
   flash = cases_lib.flash_case(1, 2, 128, 128, 64, cap=50.0, mask='none',
                                device=device)
   ln = cases_lib.layer_norm_case(16, 768, direct_scale=False, device=device)
@@ -172,9 +178,12 @@ def test_dispatch_counts_and_refusals(device):
   torch.cuda.synchronize()
   assert dict(_lib.LAUNCHES) == {'fused_attention': 1,
                                  'fused_layer_norm_2d': 1}
-  with pytest.raises(ValueError, match='head dim 12.*multiples of 8'):
-    q = flash.args[0][..., :12].contiguous()
-    flash.fn(q, q, q, flash.args[3], **flash.kwargs)
+  # K5 pads a head dim off a multiple of 8 (12 -> 16) and raises past 128.
+  _check_all([cases_lib.flash_case(2, 2, 128, 128, 12, cap=50.0,
+                                   mask='keys', device=device)])
+  q136 = torch.zeros((1, 2, 128, 136), dtype=torch.bfloat16, device=device)
+  with pytest.raises(ValueError, match='head dim 136.*at most 128'):
+    flash.fn(q136, q136, q136, flash.args[3], **flash.kwargs)
   with pytest.raises(ValueError, match='bfloat16'):
     ln.fn(ln.args[0].float(), *ln.args[1:], **ln.kwargs)
   # K7 counts its launches (and those that emit the context), takes
@@ -188,9 +197,9 @@ def test_dispatch_counts_and_refusals(device):
   torch.cuda.synchronize()
   assert dict(_lib.LAUNCHES) == {'fused_attention_bwd': 1}
   assert _lib.CTX_LAUNCHES['fused_attention_bwd'] == 1
-  _check_all([cases_lib.flash_bwd_case(1, 2, 128, 128, 88, cap=50.0,
+  _check_all([cases_lib.flash_bwd_case(1, 2, 128, 128, hd, cap=50.0,
                                        mask='none', with_ctx=True,
-                                       device=device)])
+                                       device=device) for hd in (88, 36)])
   q104 = torch.zeros((1, 2, 128, 104), dtype=torch.bfloat16, device=device)
   with pytest.raises(ValueError, match='head dim 104.*at most 96'):
     bwd.fn(q104, q104, q104, bwd.args[3], q104, **bwd.kwargs)
@@ -483,8 +492,19 @@ def _int8_kernels_and_dispatch(device):
   with pytest.raises(ValueError, match='bfloat16'):
     ffn.fn(ffn.args[0].float(), *ffn.args[1:], **ffn.kwargs)
   with pytest.raises(ValueError, match='int8'):
-    ffn.fn(*ffn.args[:4], ffn.args[4].bfloat16(), *ffn.args[5:],
-           **ffn.kwargs)
+    kmajor = dict(ffn.kwargs['kmajor'],
+                  w1=ffn.kwargs['kmajor']['w1'].bfloat16())
+    ffn.fn(*ffn.args, **dict(ffn.kwargs, kmajor=kmajor))
+  # Given [K, N] weights the wrappers build the K-major operands
+  # themselves: the same bits (K12a's projection too, with its one launch).
+  for case in (ffn, cases_lib.int8_attention_case(
+      6, 40, 144, 3, 48, cap=50.0, padded=True, chunks=3, device=device),
+               *cases_lib.int8_projection_cases(200, 144, 128,
+                                                device=device)):
+    got = cases_lib._joined(case.fn(*case.args, **case.kwargs))
+    kn = cases_lib._joined(case.fn(*case.args,
+                                   **dict(case.kwargs, kmajor=None)))
+    assert torch.equal(got, kn), case.label
   with pytest.raises(ValueError, match='multiple of 16'):
     ffn.fn(*ffn.args, **dict(ffn.kwargs, chunks=36))      # chunks of 8
 

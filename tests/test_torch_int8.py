@@ -190,12 +190,30 @@ def _args(side, names):
   return tuple(side[k] for k in names)
 
 
+def _attention_kmajor(side, n, h):
+  """The kernels' K-major q|k|v and Wo operands of ``side``'s [K, N]
+  ones (prepare_for_kernels' layout)."""
+  return dict(ti8.int8_qkv_kmajor(*_args(side, QKV), num_heads=n,
+                                  dim_per_head=h),
+              **ti8.int8_out_kmajor(side['wo'], num_heads=n, dim_per_head=h))
+
+
+def _check_kmajor(fn, args, kw, kmajor, got):
+  """The twin reading the K-major operands gives the [K, N] path's
+  outputs bit for bit (the int8 products are exact either way)."""
+  again = fn(*args, **kw, kmajor=kmajor)
+  for g, a in zip(got if isinstance(got, tuple) else (got,),
+                  again if isinstance(again, tuple) else (again,)):
+    assert torch.equal(g, a)
+
+
 def test_quantize_for_serving_matches_jax():
   """Codes and scales bitwise equal to the JAX package's host path (and
   its device path), for an unstacked and a stacked tree; dequantize and
   is_quantized agree; an int8 leaf is left as it is; params_from_numpy
   keeps int8 and fp32 scales under a bf16 cast and prepare_for_kernels
-  adds the int8 output-projection layout."""
+  adds the int8 kernels' K-major layout, sharing memory with the [K, N]
+  leaves, which dequantize drops."""
   layer = _layer(0, 2, 64)
   stacked = jax.tree.map(lambda *a: np.stack(a),
                          *[_layer(s, 2, 64) for s in (1, 2, 3)])
@@ -228,12 +246,38 @@ def test_quantize_for_serving_matches_jax():
   assert attn['query']['b'].dtype == torch.bfloat16
   assert bf16['x_layers']['ff_layer']['ffn_layer1']['linear'][
       'kernel_scale'].dtype == torch.float32
-  prepared = prepare_for_kernels(bf16)['x_layers']['self_attention']
+  # prepare_for_kernels writes the int8 kernels' K-major operands: Wo [D,
+  # N*H] (the post weights flattened), q|k|v [3*N*H, D], W1 [F, D] and W2
+  # [D, F], each the transposed [K, N] weights; the [K, N] leaves become
+  # views of those copies, so the weights are held once.
+  layers = prepare_for_kernels(bf16)['x_layers']
+  prepared, ff = layers['self_attention'], layers['ff_layer']
+  src_attn = want['x_layers']['self_attention']
+  kn = lambda name: np.asarray(src_attn[name]['w']).reshape(3, 128, 128)
   assert prepared['fused']['wo'].dtype == torch.int8
+  np.testing.assert_array_equal(prepared['fused']['wo'].numpy(), kn('post'))
   np.testing.assert_array_equal(
-      prepared['fused']['wo'].numpy(),
-      np.transpose(np.asarray(want['x_layers']['self_attention']['post']['w']),
-                   (0, 2, 3, 1)).reshape(3, 128, 128))
+      prepared['fused']['wqkv'].numpy(),
+      np.concatenate([kn(n) for n in ('query', 'key', 'value')],
+                     -1).transpose(0, 2, 1))
+  np.testing.assert_array_equal(
+      prepared['fused']['sqkv'].numpy(),
+      np.concatenate([np.asarray(src_attn[n]['w_scale']).reshape(3, 128)
+                      for n in ('query', 'key', 'value')], -1))
+  for key, name in (('w1', 'ffn_layer1'), ('w2', 'ffn_layer2')):
+    w = np.asarray(want['x_layers']['ff_layer'][name]['linear']['kernel'])
+    np.testing.assert_array_equal(ff['fused'][key].numpy(),
+                                  w.transpose(0, 2, 1))
+    leaf = ff[name]['linear']['kernel']
+    np.testing.assert_array_equal(leaf.numpy(), w)
+    assert leaf.data_ptr() == ff['fused'][key].data_ptr()
+  for name in ('query', 'key', 'value'):
+    np.testing.assert_array_equal(prepared[name]['w'].numpy(),
+                                  np.asarray(src_attn[name]['w']))
+    assert (prepared['fused']['wqkv'].untyped_storage().data_ptr()
+            == prepared[name]['w'].untyped_storage().data_ptr())
+  assert not any('fused' in sub for sub in tq.dequantize(
+      layers, torch.bfloat16).values())
 
 
 def test_quant_rows_bitwise_equal():
@@ -333,9 +377,10 @@ def test_int8_route_rule_matches_reference(monkeypatch):
 
   # On the card, with the attention core's capacity replaced by a stand-in
   # that holds T <= 784: at T = 800 the one-group layer takes K12a + K5 +
-  # K12b and K9 in one chunk, at H = 32 and at 24 (a multiple of 8 but not
-  # of 16, as giant's 88); a chunked one, or a head dim K5 cannot take (20,
-  # not a multiple of 8), raises naming the limit.
+  # K12b and K9 in one chunk, at H = 32, at 24 (a multiple of 8 but not
+  # of 16, as giant's 88) and at 20 (not a multiple of 8: padded to 24);
+  # a chunked one, or a head dim K5 cannot take (20 with K5's maximum
+  # replaced by 16), raises naming the limit.
   monkeypatch.setattr(_lib, 'use_kernel', lambda impl, x: True)
   monkeypatch.setattr(_lib, 'max_attention_t', lambda h: 784)
   called = []
@@ -350,13 +395,15 @@ def test_int8_route_rule_matches_reference(monkeypatch):
       tq.quantize_for_serving({'l': _layer(50, 4, h)})['l'], device='cpu')
   call = lambda h: ttfm.transformer_layer(layer(h), x, None,
                                           torch.zeros((1, 1, 1, 800)), cfg)
-  for h in (32, 24):
+  for h in (32, 24, 20):
     called.clear()
     call(h)
     assert called == [('int8_projected_flash_attention', None),
                       ('int8_ffn_block_chunked', 1)], (h, called)
-  with pytest.raises(ValueError, match=r'T <= 784.*multiples of 8'):
-    call(20)
+  with monkeypatch.context() as patch:
+    patch.setattr(ttfm.flash, 'MAX_HEAD_DIM', 16)
+    with pytest.raises(ValueError, match=r'T <= 784.*at most 16'):
+      call(20)
   monkeypatch.setattr(ti8, 'attention_int8_chunks_for', lambda *a: 2)
   with pytest.raises(ValueError, match=r'T <= 784.*chunks this layer'):
     call(32)
@@ -370,7 +417,8 @@ def _run(fn, t_side, j_side, names, tkw, jkw):
 def test_int8_ffn_block_matches_jax():
   """K9's twin against the JAX kernel: fp32 and bf16, with and without
   paddings, gelu and relu, chunks 1 and 2 (bf16 at 2 also the bit-share
-  test against the one-chunk twin and the cast-once sum); partial_out
+  test against the one-chunk twin and the cast-once sum), and on the
+  kernels' K-major operands bitwise its [K, N] outputs; partial_out
   (tensor
   parallelism) raises naming its ROADMAP item, and impl='kernel' on CPU
   tensors raises without counting a launch."""
@@ -385,6 +433,8 @@ def test_int8_ffn_block_matches_jax():
     got, want = _run((ti8.int8_ffn_block_chunked, ji8.int8_ffn_block_chunked),
                      t, j, names, kw, kw)
     _compare(got, want, f'{label} K9 padded={padded} {act} chunks={chunks}')
+    _check_kmajor(ti8.int8_ffn_block_chunked, _args(t, names), kw,
+                  ti8.int8_ffn_kmajor(t['w1'], t['w2']), got)
     if label == 'bf16' and chunks == 2:
       _check_rounds_per_chunk(got, (
           ti8.int8_ffn_block_chunked(*_args(t, names), **dict(kw, chunks=1)),
@@ -417,6 +467,8 @@ def test_int8_attention_block_matches_jax():
                       ji8.int8_attention_block_chunked), t, j, names, kw, kw)
     _compare(got, want, f'{label} K10 padded={padded} causal={causal} cap={cap} '
              f'chunks={chunks}')
+    _check_kmajor(ti8.int8_attention_block_chunked, _args(t, names), kw,
+                  _attention_kmajor(t, 2, 64), got)
     if label == 'bf16' and chunks == 2:
       args = _args(t, names)
       _check_rounds_per_chunk(got, (
@@ -442,6 +494,9 @@ def test_int8_layer_block_matches_jax():
     got, want = _run((ti8.int8_layer_block, ji8.int8_layer_block), t, j,
                      names, kw, kw)
     _compare(got, want, f'{label} K11 padded={padded} cap={cap} chunks={chunks}')
+    _check_kmajor(ti8.int8_layer_block, _args(t, names), kw,
+                  dict(_attention_kmajor(t, 4, 32),
+                       **ti8.int8_ffn_kmajor(t['w1'], t['w2'])), got)
     if label == 'bf16' and chunks == (2, 2):
       # The fp32 sums round once: the JAX kernel's bits differ from the
       # twin's in well under half as many elements as from K10 + K9's.
@@ -476,15 +531,25 @@ def test_int8_projections_match_jax():
                      ('x2d', 'ln1_s', 'ln1_b', *QKV), kw, kw)
     for g, w, name in zip(got, want, 'qkv'):
       _compare(g, w, f'{tag} K12a {name}')
+    _check_kmajor(ti8.int8_qkv_projection, _args(t, ('x2d', 'ln1_s', 'ln1_b',
+                                                     *QKV)), kw,
+                  ti8.int8_qkv_kmajor(*_args(t, QKV), num_heads=1,
+                                      dim_per_head=128), got)
     got, want = _run((ti8.int8_out_projection, ji8.int8_out_projection), t, j,
                      ('ctx', 'x2d', *OUT), {}, {})
     _compare(got, want, f'{tag} K12b')
+    _check_kmajor(ti8.int8_out_projection, _args(t, ('ctx', 'x2d', *OUT)), {},
+                  ti8.int8_out_kmajor(t['wo'], num_heads=1, dim_per_head=128),
+                  got)
     kw = dict(num_heads=2, dim_per_head=64, logit_cap=cap,
               query_scale=64 ** -0.5)
     got, want = _run((ti8.int8_projected_flash_attention,
                       ji8.int8_projected_flash_attention), t, j,
                      ('x', 'mask4', 'ln1_s', 'ln1_b', *QKV, *OUT), kw, kw)
     _compare(got, want, f'{tag} projected')
+    _check_kmajor(ti8.int8_projected_flash_attention,
+                  _args(t, ('x', 'mask4', 'ln1_s', 'ln1_b', *QKV, *OUT)), kw,
+                  _attention_kmajor(t, 2, 64), got)
 
 
 class _Routes:

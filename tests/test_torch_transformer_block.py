@@ -17,15 +17,21 @@ from videoprism_tpu.ops import attention as jattn
 from videoprism_tpu.ops import basic as jbasic
 from videoprism_tpu.ops import transformer as jtfm
 from videoprism_tpu.ops.pallas import transformer_block as jtb
+from videoprism_tpu_torch import quantization as tq
+from videoprism_tpu_torch.io.checkpoints import (
+    params_from_numpy,
+    prepare_for_kernels,
+)
 from videoprism_tpu_torch.ops import transformer as ttfm
 from videoprism_tpu_torch.ops.kernels import _lib
+from videoprism_tpu_torch.ops.kernels import int8_blocks as ti8
 from videoprism_tpu_torch.ops.kernels import transformer_block as ttb
 
 D, N, H, F, T, B = 128, 2, 64, 256, 16, 4
 NEG = -0.7 * float(np.finfo(np.float32).max)
 
 
-def _layer(seed):
+def _layer(seed, D=D, N=N, H=H, F=F):
   """Numpy params of one 'pre' layer with non-zero LN scales and biases."""
   rng = np.random.default_rng(seed)
   w = lambda *s: (rng.standard_normal(s) / np.sqrt(s[0])).astype(np.float32)
@@ -228,6 +234,8 @@ class TestTransformerLayer:
         ttfm.mask_lib.attention_mask_for_fprop(tx, tp), tcfg)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
                                rtol=0)
+    if not per_dim_scale:
+      _check_padded_head_dim()
 
   def test_other_norm_policies_raise(self):
     cfg = ttfm.TransformerLayerConfig(num_layers=1, hidden_dim=F, num_heads=N,
@@ -235,3 +243,72 @@ class TestTransformerLayer:
     x = torch.zeros((1, T, D))
     with pytest.raises(NotImplementedError, match='ROADMAP'):
       ttfm.transformer_layer({}, x, None, torch.zeros((1, 1, 1, T)), cfg)
+
+
+def _check_padded_head_dim():
+  """A layer of 4 heads of 36, a head dim off a multiple of 8:
+  prepare_for_kernels pads each head to 40 with zeros.  The prepared layer
+  (twins) matches the JAX package's xla path in fp32 to 2e-5; K1's twin
+  and K10's on the padded layout give the unpadded one's outputs to 1e-6
+  (K10's [K, N] weights against the padded K-major operands; measured
+  bitwise equal, the zeros adding exact zeros)."""
+  n, h, d, f = 4, 36, 144, 288
+  hp = ttb.padded_head_dim(h)
+  rng = np.random.default_rng(11)
+  p = _layer(11, D=d, N=n, H=h, F=f)
+  x = rng.standard_normal((B, T, d)).astype(np.float32)
+  pads = _paddings(rng, B, T, True)
+  kw = dict(num_layers=1, hidden_dim=f, num_heads=n, activation='gelu',
+            enable_per_dim_scale=False, logit_cap=50.0)
+  want = jtfm.transformer_layer(
+      jax.tree.map(jnp.asarray, p), jnp.asarray(x), jnp.asarray(pads),
+      jtfm.mask_lib.attention_mask_for_fprop(jnp.asarray(x),
+                                             jnp.asarray(pads)),
+      jtfm.TransformerLayerConfig(**kw))
+  tx, tp = torch.from_numpy(x), torch.from_numpy(pads)
+  mask = ttfm.mask_lib.attention_mask_for_fprop(tx, tp)
+  params = prepare_for_kernels(params_from_numpy(p, device='cpu'))
+  fused = params['self_attention']['fused']
+  assert tuple(fused['wqkv'].shape) == (d, 3 * n * hp)
+  assert tuple(fused['wo'].shape) == (n * hp, d)
+  got = ttfm.transformer_layer(params, tx, tp, mask,
+                               ttfm.TransformerLayerConfig(**kw))
+  np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                             rtol=0)
+  # K1's twin: the padded fused weights against the unpadded ones.
+  a = p['self_attention']
+  flat = lambda name: torch.from_numpy(a[name]['w'].reshape(d, n * h))
+  ln = (torch.from_numpy(p['layer_norm']['scale']),
+        torch.from_numpy(p['layer_norm']['bias']))
+  mask3 = mask.squeeze(1).float()
+  static = dict(num_heads=n, logit_cap=50.0, query_scale=h ** -0.5)
+  unpadded = ttb.fused_attention_block(
+      tx, mask3, *ln, torch.cat([flat(k) for k in ('query', 'key', 'value')],
+                                -1),
+      torch.cat([torch.from_numpy(a[k]['b'].reshape(n * h))
+                 for k in ('query', 'key', 'value')]),
+      flat('post').t().contiguous(), torch.from_numpy(a['post']['b']),
+      dim_per_head=h, **static)
+  padded = ttb.fused_attention_block(
+      tx, mask3, *ln, fused['wqkv'], fused['bqkv'], fused['wo'],
+      params['self_attention']['post']['b'], dim_per_head=hp, **static)
+  np.testing.assert_allclose(padded.numpy(), unpadded.numpy(), atol=1e-6,
+                             rtol=0)
+  # K10's twin in int8: [K, N] weights against the padded K-major operands.
+  q8 = params_from_numpy(tq.quantize_for_serving(p), device='cpu')
+  prepared = prepare_for_kernels(q8)['self_attention']
+  assert tuple(prepared['fused']['wqkv'].shape) == (3 * n * hp, d)
+  assert tuple(prepared['fused']['wo'].shape) == (d, n * hp)
+  a8 = q8['self_attention']
+  kn = []
+  for k in ('query', 'key', 'value'):
+    kn += [a8[k]['w'].reshape(d, n * h), a8[k]['w_scale'].reshape(n * h),
+           a8[k]['b'].reshape(n * h)]
+  kn += [a8['post']['w'].flatten(-2).t(), a8['post']['w_scale'],
+         a8['post']['b']]
+  static = dict(static, dim_per_head=h, chunks=2)
+  got_kn = ti8.int8_attention_block_chunked(tx, mask3, *ln, *kn, **static)
+  got_k = ti8.int8_attention_block_chunked(
+      tx, mask3, *ln, *kn, **static, kmajor=prepared['fused'])
+  np.testing.assert_allclose(got_k.numpy(), got_kn.numpy(), atol=1e-6,
+                             rtol=0)

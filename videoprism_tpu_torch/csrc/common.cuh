@@ -78,6 +78,36 @@ inline cudaError_t set_max_dynamic_smem(size_t bytes) {
   return err;
 }
 
+// Streaming multiprocessors of the current device (cached per device).
+inline int sm_count() {
+  static int count[32] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 32) return 132;
+  if (!count[dev] &&
+      cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 132;
+  return count[dev];
+}
+
+inline bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
+
+// Warps per block of a kernel that gives each warp one row: 8, halved
+// while that leaves fewer than two blocks per SM, so that a short call
+// (130 rows of the text tower) spreads over the card.
+inline int row_warps(long rows) {
+  int warps = 8;
+  const long want = 2L * sm_count();
+  while (warps > 1 && (rows + warps - 1) / warps < want) warps /= 2;
+  return warps;
+}
+
+// A row of up to 32 * kMaxRowChunks 16-byte chunks (2048 bf16) is held in
+// registers by the row kernels (ln_rows.cu, int8_blocks.cu): lane l keeps
+// chunks l, l + 32, ..  Wider rows, or rows that are not whole 16-byte
+// chunks, take their streaming kernels.
+constexpr int kMaxRowChunks = 8;
+inline int row_chunks(int cols) { return (cols / 8 + 31) / 32; }
+
 // ---- host launchers (each returns cudaGetLastError() after its launch) ----
 
 // Row LayerNorm with fp32 statistics, (x - mean) * rsqrt(var + eps) *

@@ -40,12 +40,8 @@
 // 269-532 TFLOP/s, the deep one (K = 3072) fastest: at K = 768 a tile's
 // twelve k-steps leave its start-up and the exact-erf GELU epilogue (W1)
 // exposed.  PERF.md says what was tried beyond this.
-// The tensor maps are encoded on the host per launch through
-// cuTensorMapEncodeTiled, reached with cudaGetDriverEntryPoint (no link
-// against libcuda).
-#include <cuda.h>
-
-#include "common.cuh"
+// The tensor maps are encoded on the host per launch (tma_wgmma.cuh).
+#include "tma_wgmma.cuh"
 
 namespace vp {
 namespace {
@@ -61,73 +57,6 @@ constexpr int kStages = 6;
 // the ring, then a full and an empty barrier per stage.
 constexpr size_t kSmem = 1024 + size_t(kStages) * kStage + 2 * kStages * 8;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-// Spins until the barrier's phase of this parity completes; traps (a
-// launch error, not a hung card) if that takes more than ~10 s.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  const long long start = clock64();
-  uint32_t done = 0;
-  while (!done) {
-    if (clock64() - start > 20000000000LL) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-// One [box] tile of a 2-D tensor map at (inner, outer) into shared memory,
-// completing `bytes` on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int inner, int outer) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(inner), "r"(outer)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | static_cast<uint64_t>(1) << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Named barrier `id` over the two consumer warpgroups (256 threads): sync
-// waits for the other warpgroup's arrival, arrive does not wait.
-__device__ __forceinline__ void consumer_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void consumer_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
 // Keeps the compiler from moving accumulator reads or writes across the
 // asynchronous products.
 __device__ __forceinline__ void fence_acc(float (&d)[64]) {
@@ -343,57 +272,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A [outer, inner] bf16 matrix with row pitch `pitch` elements, read in
-// boxes of [box_outer, 64] with 128-byte swizzle; out-of-bounds reads are
-// zeros.
-bool tensor_map(CUtensorMap* map, const bf16* base, int inner, int outer, int pitch,
-                int box_outer) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch) * sizeof(bf16)};
-  const cuuint32_t box[2] = {BK, static_cast<cuuint32_t>(box_outer)};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// Streaming multiprocessors of the current device (cached per device).
-int sm_count() {
-  static int count[32] = {};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 32) return 132;
-  if (!count[dev] &&
-      cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 132;
-  return count[dev];
-}
-
 }  // namespace
 
 cudaError_t launch_gemm_bf16(const bf16* a, const bf16* b, const bf16* bias, const bf16* pads,
@@ -404,7 +282,9 @@ cudaError_t launch_gemm_bf16(const bf16* a, const bf16* b, const bf16* bias, con
       reinterpret_cast<uintptr_t>(a) % 16 || reinterpret_cast<uintptr_t>(b) % 16)
     return cudaErrorInvalidValue;
   CUtensorMap map_a, map_b;
-  if (!tensor_map(&map_a, a, K, M, lda, BM) || !tensor_map(&map_b, b, N, K, N, BK))
+  constexpr auto kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (!tensor_map(&map_a, kBf16, a, K, M, 2L * lda, BK, BM) ||
+      !tensor_map(&map_b, kBf16, b, N, K, 2L * N, BK, BK))
     return cudaErrorInvalidValue;
   cudaError_t err = set_max_dynamic_smem<gemm_bf16_kernel>(kSmem);
   if (err != cudaSuccess) return err;

@@ -20,6 +20,7 @@ from videoprism_tpu_torch import quantization
 from videoprism_tpu_torch.ops.transformer import (
     fused_attention_weights,
     int8_attention_weights,
+    int8_ffn_weights,
 )
 
 
@@ -109,28 +110,65 @@ def _has_int8(tree) -> bool:
   return quantization.is_int8(tree)
 
 
-def prepare_for_kernels(params: dict[str, Any]) -> dict[str, Any]:
-  """Adds ``fused`` = {wqkv [.., D, 3NH], bqkv [.., 3NH], wo [.., NH, D]}
-  beside every float ``self_attention`` tree's (D, N, H) weights, in their
-  dtype, and ``fused`` = {wo int8 [.., NH, D]} beside every int8 one (its
-  q/k/v weights are used as [D, NH] views).
+def _int8_views(value: dict[str, Any], fused: dict[str, torch.Tensor],
+                attention: bool) -> dict[str, Any]:
+  """The int8 [K, N] weight leaves of an attention (or ``ff_layer``) tree
+  as views of the K-major copies in ``fused``, so that the two layouts
+  share their memory; the leaves as they are where the copies are padded
+  (a head dim off a multiple of 8)."""
+  value = dict(value)
+  if attention:
+    n, h = value['query']['w'].shape[-2:]
+    w = fused['wqkv'].transpose(-1, -2)               # [.., D, 3 N H']
+    if w.shape[-1] != 3 * n * h:
+      return value
+    for i, name in enumerate(('query', 'key', 'value')):
+      view = w[..., i * n * h:(i + 1) * n * h].unflatten(-1, (n, h))
+      value[name] = dict(value[name], w=view)
+    return value
+  for name, key in (('ffn_layer1', 'w1'), ('ffn_layer2', 'w2')):
+    linear = dict(value[name]['linear'], kernel=fused[key].transpose(-1, -2))
+    value[name] = dict(value[name], linear=linear)
+  return value
 
-  Done once at load time, so the attention blocks (K1, and K8a, which reads
-  a head group as a column block of Wqkv and a row block of Wo; K10, K11
-  and K12b) do not concatenate and transpose their projection weights on
-  every forward.  A float CLIP model's ``auxiliary_encoder`` is left as it
-  is: its 4096-token attention runs the composed path (K5), which takes the
-  (D, N, H) weights; an int8 one runs K12a + K5 + K12b and gets the int8
-  layout.  Returns a new tree; the other leaves are shared.
+
+def prepare_for_kernels(params: dict[str, Any]) -> dict[str, Any]:
+  """Adds the kernels' weight layout as ``fused`` subtrees, once at load:
+
+  * beside every float ``self_attention`` tree's (D, N, H) weights, in
+    their dtype, {wqkv [.., D, 3NH'], bqkv [.., 3NH'], wo [.., NH', D]};
+  * beside every int8 one, the int8 kernels' K-major operands
+    {wqkv [.., 3NH', D], sqkv and bqkv [.., 3NH'], wo [.., D, NH']}
+    (``ops/transformer.py`` ``int8_attention_weights``), and beside every
+    int8 ``ff_layer`` {w1 [.., F, D], w2 [.., D, F]}; the int8 q, k, v
+    and FFN leaves then become views of those copies (transposed, not
+    contiguous) and Wo already is one of the ``post`` leaf, so the int8
+    weights are held once.
+
+  H' is the head dim rounded up to a multiple of 8, each head's padding
+  zeros (the same function, exactly; a no-op at every shipped config's
+  head dim).  Done once at load time, so the attention blocks (K1, and
+  K8a, which reads a head group as a column block of Wqkv and a row block
+  of Wo; K9-K12b) do not concatenate and transpose their projection
+  weights on every forward.  A float CLIP model's ``auxiliary_encoder`` is
+  left as it is: its 4096-token attention runs the composed path (K5),
+  which takes the (D, N, H) weights; an int8 one runs K12a + K5 + K12b
+  and K9 and gets the int8 layout.  Returns a new tree; the other leaves
+  are shared.
   """
   out = {}
   for key, value in params.items():
     if key == 'self_attention' and 'query' in value:
       if quantization.is_quantized({'self_attention': value}):
-        value = dict(value, fused=int8_attention_weights(value))
+        fused = int8_attention_weights(value)
+        value = dict(_int8_views(value, fused, attention=True), fused=fused)
       else:
         value = dict(value, fused=fused_attention_weights(
             value, value['query']['w'].dtype))
+    elif (key == 'ff_layer' and 'ffn_layer1' in value
+          and quantization.is_int8(value['ffn_layer1']['linear']['kernel'])):
+      fused = int8_ffn_weights(value)
+      value = dict(_int8_views(value, fused, attention=False), fused=fused)
     elif isinstance(value, Mapping) and (key != 'auxiliary_encoder'
                                          or _has_int8(value)):
       value = prepare_for_kernels(value)

@@ -63,11 +63,12 @@ _SIGNATURES = {
     'vp_flash_attention_bwd': 'ppppppppppp' 'iiiiiii' 'f' 'p',
     'vp_capped_weight': 'ppp' 'i' 'f' 'p',
     'vp_int8_ffn_block': 'p' * 17 + 'iiiii' 'f' 'p',
-    'vp_int8_attention_block': 'p' * 24 + 'i' * 8 + 'fff' 'p',
-    'vp_int8_layer_block': 'p' * 37 + 'i' * 11 + 'fff' 'p',
-    'vp_int8_qkv_projection': 'p' * 15 + 'iii' 'ff' 'p',
+    'vp_int8_attention_block': 'p' * 18 + 'i' * 8 + 'fff' 'p',
+    'vp_int8_layer_block': 'p' * 31 + 'i' * 11 + 'fff' 'p',
+    'vp_int8_qkv_projection': 'p' * 9 + 'iii' 'ff' 'p',
     'vp_int8_out_projection': 'p' * 8 + 'iii' 'p',
     'vp_gemm_bf16': 'pppppp' 'iiiiii' 'f' 'i' 'p',
+    'vp_gemm_i8': 'p' * 8 + 'iiiii' 'f' 'i' 'p',
 }
 _CTYPES = {'p': ctypes.c_void_p, 'i': ctypes.c_int, 'f': ctypes.c_float}
 
@@ -99,8 +100,12 @@ def needs_grad(impl: str, *tensors: torch.Tensor | None) -> bool:
   autograd is recording and an operand requires grad.  ``impl='reference'``
   never does: autograd then differentiates the plain twin itself, an
   independent check of the hand-written backwards."""
-  return (impl != 'reference' and torch.is_grad_enabled()
-          and any(t is not None and t.requires_grad for t in tensors))
+  if impl == 'reference' or not torch.is_grad_enabled():
+    return False
+  for t in tensors:   # a loop, not any(generator): this runs on every call
+    if t is not None and t.requires_grad:
+      return True
+  return False
 
 
 def check(cond: bool, msg: str) -> None:
@@ -113,16 +118,25 @@ def check_tensors(device: torch.device, *, int8: tuple[str, ...] = (),
                   **tensors: torch.Tensor) -> None:
   """Every kernel operand: on ``device``, contiguous, 16-byte aligned, and
   bf16, or int8 / fp32 for the operands named in ``int8`` / ``fp32``
-  (masks: fp32)."""
+  (masks: fp32).  One test per operand; the message is built only for an
+  operand that fails it."""
+  index = device.index
   for name, t in tensors.items():
     want = (torch.int8 if name in int8 else
             torch.float32 if name in fp32 else torch.bfloat16)
-    check(t.device == device, f'{name} is on {t.device}, expected {device}')
-    check(t.dtype == want,
-          f'{name} is {t.dtype}; the kernel takes {want} (fp32 activations '
-          "run only with impl='reference')")
-    check(t.is_contiguous(), f'{name} must be contiguous')
-    check(t.data_ptr() % 16 == 0, f'{name} must be 16-byte aligned')
+    if (t.dtype is not want or t.get_device() != index
+        or not t.is_contiguous() or t.data_ptr() % 16):
+      _refuse(name, t, device, want)
+
+
+def _refuse(name: str, t: torch.Tensor, device: torch.device,
+            want: torch.dtype) -> None:
+  check(t.device == device, f'{name} is on {t.device}, expected {device}')
+  check(t.dtype == want,
+        f'{name} is {t.dtype}; the kernel takes {want} (fp32 activations '
+        "run only with impl='reference')")
+  check(t.is_contiguous(), f'{name} must be contiguous')
+  check(t.data_ptr() % 16 == 0, f'{name} must be 16-byte aligned')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,22 +227,48 @@ def attention_fits(t: int, head_dim: int) -> bool:
   return t <= max_attention_t(head_dim)
 
 
-def launch(name: str, device: torch.device, *args) -> None:
-  """Calls C entry point ``name`` on the current stream of ``device``."""
-  lib = library()
+@functools.cache
+def _device_queries():
+  """(current device index, index -> raw handle of its current stream):
+  PyTorch's own accessors where it has them (no lazy-init check, no Stream
+  object per call), else the public ``torch.cuda`` calls."""
+  current = getattr(torch._C, '_cuda_getDevice', torch.cuda.current_device)
+  raw = getattr(torch._C, '_cuda_getCurrentRawStream', None)
+  if raw is None:
+    raw = lambda index: torch.cuda.current_stream(index).cuda_stream
+  return current, raw
+
+
+@functools.cache
+def _entry(name: str):
+  """(C function, argument count, positions of the pointer arguments) of
+  entry point ``name``, resolved once."""
   codes = _SIGNATURES[name][:-1]
-  if len(args) != len(codes):
-    raise TypeError(f'{name} takes {len(codes)} arguments, got {len(args)}')
-  converted = []
-  for code, arg in zip(codes, args):
-    if code == 'p':
-      converted.append(None if arg is None else arg.data_ptr())
-    elif code == 'i':
-      converted.append(int(arg))
-    else:
-      converted.append(float(arg))
-  with torch.cuda.device(device):
-    err = getattr(lib, name)(*converted, torch.cuda.current_stream().cuda_stream)
+  return (getattr(library(), name), len(codes),
+          tuple(i for i, c in enumerate(codes) if c == 'p'))
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+  """Calls C entry point ``name`` on the current stream of ``device``.
+
+  Pointer arguments are tensors (or None), read once with ``data_ptr()``;
+  ints and floats go to ctypes as they are.  The device is switched only
+  when it is not the current one."""
+  fn, count, pointers = _entry(name)
+  if len(args) != count:
+    raise TypeError(f'{name} takes {count} arguments, got {len(args)}')
+  args = list(args)
+  for i in pointers:
+    if args[i] is not None:
+      args[i] = args[i].data_ptr()
+  current, raw_stream = _device_queries()
+  here, index = current(), device.index
+  if index is None or index == here:
+    err = fn(*args, raw_stream(here))
+  else:
+    with torch.cuda.device(index):
+      err = fn(*args, raw_stream(index))
   if err != 0:
     raise RuntimeError(
-        f'{name} failed to launch: {lib.vp_error_string(err).decode()} ({err})')
+        f'{name} failed to launch: {library().vp_error_string(err).decode()} '
+        f'({err})')

@@ -325,6 +325,14 @@ def _int8_ffn_operands(rng, d: int, f: int, device) -> tuple:
           *_int8(rng, f, d, device), small(d))
 
 
+def _attention_kmajor(ops, heads: int, head_dim: int) -> dict:
+  """The kernels' K-major operands of ``_int8_attention_operands``' q, k,
+  v and o (``prepare_for_kernels``' layout)."""
+  geometry = dict(num_heads=heads, dim_per_head=head_dim)
+  return dict(i8.int8_qkv_kmajor(*ops[2:11], **geometry),
+              **i8.int8_out_kmajor(ops[11], **geometry))
+
+
 def int8_ffn_case(rows: int, d: int, f: int, *, activation: str,
                   padded: bool, chunks: int, device, seed: int = 0) -> Case:
   """K9 over ``chunks`` F-chunks."""
@@ -335,7 +343,8 @@ def int8_ffn_case(rows: int, d: int, f: int, *, activation: str,
   return Case('int8_ffn_block_chunked',
               f'rows={rows} D={d} F={f} {activation} padded={padded} '
               f'chunks={chunks}', i8.int8_ffn_block_chunked, args,
-              dict(activation=activation, chunks=chunks))
+              dict(activation=activation, chunks=chunks,
+                   kmajor=i8.int8_ffn_kmajor(args[4], args[7])))
 
 
 def int8_attention_case(b: int, t: int, d: int, heads: int, head_dim: int, *,
@@ -344,15 +353,16 @@ def int8_attention_case(b: int, t: int, d: int, heads: int, head_dim: int, *,
   """K10 over ``chunks`` head groups."""
   rng = np.random.default_rng(seed)
   mask = _self_mask(_paddings(rng, b, t, padded), causal)
+  ops = _int8_attention_operands(rng, d, heads * head_dim, device)
   args = (_tensor(rng.standard_normal((b, t, d)), device),
-          _tensor(mask, device, torch.float32),
-          *_int8_attention_operands(rng, d, heads * head_dim, device))
+          _tensor(mask, device, torch.float32), *ops)
   return Case('int8_attention_block_chunked',
               f'[{b},{t},{d}] H={head_dim} cap={cap:g} padded={padded}'
               f'{" causal" if causal else ""} chunks={chunks}',
               i8.int8_attention_block_chunked, args,
               dict(num_heads=heads, dim_per_head=head_dim, chunks=chunks,
-                   logit_cap=cap, query_scale=head_dim ** -0.5))
+                   logit_cap=cap, query_scale=head_dim ** -0.5,
+                   kmajor=_attention_kmajor(ops, heads, head_dim)))
 
 
 def int8_layer_case(b: int, t: int, d: int, heads: int, head_dim: int,
@@ -362,18 +372,20 @@ def int8_layer_case(b: int, t: int, d: int, heads: int, head_dim: int,
   """K11 with (head_chunks, ffn_chunks)."""
   rng = np.random.default_rng(seed)
   pads = _paddings(rng, b, t, padded)
+  ops = _int8_attention_operands(rng, d, heads * head_dim, device)
   args = (_tensor(rng.standard_normal((b, t, d)), device),
           _tensor(_self_mask(pads, causal), device, torch.float32),
-          _tensor(pads[..., None], device),
-          *_int8_attention_operands(rng, d, heads * head_dim, device),
+          _tensor(pads[..., None], device), *ops,
           *_int8_ffn_operands(rng, d, f, device))
+  kmajor = dict(_attention_kmajor(ops, heads, head_dim),
+                **i8.int8_ffn_kmajor(args[19], args[22]))
   return Case('int8_layer_block',
               f'[{b},{t},{d}] H={head_dim} F={f} cap={cap:g} padded={padded}'
               f'{" causal" if causal else ""} chunks={chunks}',
               i8.int8_layer_block, args,
               dict(num_heads=heads, dim_per_head=head_dim, logit_cap=cap,
                    query_scale=head_dim ** -0.5, head_chunks=chunks[0],
-                   ffn_chunks=chunks[1]))
+                   ffn_chunks=chunks[1], kmajor=kmajor))
 
 
 def int8_projection_cases(rows: int, d: int, nh: int, *, device,
@@ -384,12 +396,15 @@ def int8_projection_cases(rows: int, d: int, nh: int, *, device,
   ops = _int8_attention_operands(rng, d, nh, device)
   x = _tensor(rng.standard_normal((rows, d)), device)
   ctx = _tensor(0.5 * rng.standard_normal((rows, nh)), device)
+  one_head = dict(num_heads=1, dim_per_head=nh)
   return [
       Case('int8_qkv_projection', f'rows={rows} D={d} NH={nh}',
            i8.int8_qkv_projection, (x, *ops[:11]),
-           dict(query_scale=0.125)),
+           dict(query_scale=0.125,
+                kmajor=i8.int8_qkv_kmajor(*ops[2:11], **one_head))),
       Case('int8_out_projection', f'rows={rows} NH={nh} D={d}',
-           i8.int8_out_projection, (ctx, x, *ops[11:]), {}),
+           i8.int8_out_projection, (ctx, x, *ops[11:]),
+           dict(kmajor=i8.int8_out_kmajor(ops[11], **one_head))),
   ]
 
 
@@ -435,10 +450,17 @@ def int8_path_cases(device, *, batch: int = 2, d: int = 768,
   return cases
 
 
-def int8_library(case: Case) -> Callable[[], object]:
-  """``torch._int_mm`` over the int8 products of an int8 case, on seeded
-  int8 operands of their shapes: the library yardstick (no one PyTorch
-  call computes a whole block)."""
+INT8_LIBRARY_LAYOUTS = ('row-major B', 'TN')
+
+
+def int8_library(case: Case, layout: str = 'row-major B'
+                 ) -> Callable[[], object]:
+  """``torch._int_mm`` over the int8 products of an int8 case (q|k|v as
+  one product, as the kernels run it), on seeded int8 operands of their
+  shapes: the library yardstick (no one PyTorch call computes a whole
+  block).  ``layout``: B [K, N] row-major, or 'TN', B the transposed view
+  of a K-major [N, K] tensor (column-major B, cuBLASLt's fastest int8
+  layout)."""
   args, kw = case.args, case.kwargs
   gen = torch.Generator(device=args[0].device).manual_seed(0)
   i8r = lambda *s: torch.randint(-127, 128, s, generator=gen,
@@ -450,7 +472,7 @@ def int8_library(case: Case) -> Callable[[], object]:
     d = args[0].shape[-1]
     nh = (kw['num_heads'] * kw['dim_per_head'] if 'num_heads' in kw
           else args[3].shape[1])
-    products += [(rows, d, nh)] * 3
+    products.append((rows, d, 3 * nh))
     if case.kernel != 'int8_qkv_projection':
       products.append((rows, nh, d))
   if case.kernel == 'int8_out_projection':
@@ -459,7 +481,10 @@ def int8_library(case: Case) -> Callable[[], object]:
     w1 = args[4] if case.kernel == 'int8_ffn_block_chunked' else args[19]
     d, f = w1.shape
     products += [(rows, d, f), (rows, f, d)]
-  operands = [(i8r(m, k), i8r(k, n)) for m, k, n in products]
+  if layout == 'TN':
+    operands = [(i8r(m, k), i8r(n, k).t()) for m, k, n in products]
+  else:
+    operands = [(i8r(m, k), i8r(k, n)) for m, k, n in products]
   return lambda: [torch._int_mm(a, b) for a, b in operands]
 
 

@@ -21,8 +21,11 @@ correction step (the correctly rounded weight / sum of the reference).
 Head dims: both kernels zero-pad the head dim to a multiple of 16 inside,
 so K5 takes every multiple of 8 up to 128 and K7 every multiple of 8 up
 to 96 (``BWD_MAX_HEAD_DIM``; the repo's configs use 64 and giant's 88).  A
-head dim that is not a multiple of 8 raises: its rows are not whole
-16-byte chunks.
+head dim that is not a multiple of 8 (whose rows are not whole 16-byte
+chunks) is zero-padded to one by the wrappers, a copy of q, k, v (and dO)
+on this rare route, and the outputs are sliced back: zero columns add
+exact zeros to the logits, so the result is the unpadded function's.  A
+head dim past a kernel's maximum raises, naming it.
 
 Under autograd :func:`fused_attention` runs through ``_FusedAttention``:
 K5 forward, which then also writes each row's max and sum of weights (fp32
@@ -44,12 +47,14 @@ JAX package (``_packed_small_seq_attention``) and the backward's VMEM fit
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from videoprism_tpu_torch.ops.kernels import _lib
 from videoprism_tpu_torch.ops.kernels.transformer_block import (
     MASK_THRESHOLD,
     NEG_INF,
     attention_core,
+    padded_head_dim,
 )
 
 # Rows per block of K7's kernels; the row statistics (K5's and K7's) are
@@ -76,10 +81,16 @@ def _check_operands(q, k, v, mask, *, max_head_dim: int, kernel: str):
              and mask.shape[1] in (1, t) and mask.shape[2] == s,
              f'mask {tuple(mask.shape)} does not fit q {tuple(q.shape)} and '
              f'S={s}')
-  _lib.check(h % 8 == 0 and 8 <= h <= max_head_dim,
-             f'head dim {h}: {kernel} takes multiples of 8, at most '
+  _lib.check(0 < h and padded_head_dim(h) <= max_head_dim,
+             f'head dim {h}: {kernel} takes head dims of at most '
              f'{max_head_dim}')
   _lib.check(t > 0 and s > 0, 'empty query or key sequence')
+
+
+def _pad(a: torch.Tensor) -> torch.Tensor:
+  """[..., H] zero-padded to a head dim that is a multiple of 8 (whole
+  16-byte rows): a copy, taken only for such a head dim."""
+  return F.pad(a, (0, padded_head_dim(a.shape[-1]) - a.shape[-1]))
 
 
 def _padded_rows(t: int) -> int:
@@ -96,6 +107,12 @@ def _fused_attention(q, k, v, mask, logit_cap, impl, *, with_stats=False):
   b, n, t, h = q.shape
   _lib.check_tensors(q.device, q=q, k=k, v=v, mask=mask)
   _check_operands(q, k, v, mask, max_head_dim=MAX_HEAD_DIM, kernel='K5')
+  if h % 8:
+    out = _fused_attention(_pad(q), _pad(k), _pad(v), mask, logit_cap, impl,
+                           with_stats=with_stats)
+    if with_stats:
+      return out[0][..., :h].contiguous(), out[1]
+    return out[..., :h].contiguous()
   out = torch.empty_like(q)
   stats = (torch.empty((2, b * n, _padded_rows(t)), dtype=torch.float32,
                        device=q.device) if with_stats else None)
@@ -204,6 +221,11 @@ def fused_attention_bwd(
                   kernel='the flash backward (K7)')
   _lib.check(do.shape == q.shape,
              f'do {tuple(do.shape)} does not match q {tuple(q.shape)}')
+  if h % 8:
+    grads = fused_attention_bwd(_pad(q), _pad(k), _pad(v), mask, _pad(do),
+                                logit_cap=logit_cap, with_ctx=with_ctx,
+                                stats=stats, impl=impl)
+    return tuple(g[..., :h].contiguous() for g in grads)
   t_pad = _padded_rows(t)
   if stats is not None:
     _lib.check_tensors(q.device, fp32=('stats',), stats=stats)

@@ -33,6 +33,14 @@ after every chunk), so the reference's rule for them is copied below.
 GELU is the exact erf form (the TPU's bf16 kernels use a polynomial).  The
 kernels take bf16 activations and raise on fp32 CUDA tensors; fp32 on the
 card runs with ``impl='reference'``.
+
+The kernels read their int8 weights K-major (the s8 ``wgmma`` takes no
+transposed operand): q|k|v as one [3*N*H', D] matrix, so that K10, K11
+and K12a make one q|k|v product, Wo as [D, N*H'], W1 as [F, D] and W2 as
+[D, F], each head zero-padded to H' (a multiple of 8).
+``io.checkpoints.prepare_for_kernels`` writes them once at load (the
+``int8_*_kmajor`` helpers below build the same from [K, N] weights); the
+wrappers take them as ``kmajor``.  :func:`gemm_i8` runs the GEMM alone.
 """
 
 from __future__ import annotations
@@ -47,6 +55,8 @@ from videoprism_tpu_torch.ops.kernels.transformer_block import (
     attention_core,
     check_partial_out,
     ln_f32,
+    pad_heads,
+    padded_head_dim,
 )
 
 _INT8 = ('w1', 'w2', 'wq', 'wk', 'wv', 'wo')
@@ -152,7 +162,60 @@ def _reference_hidden_parts(x, keep, ln_scale, ln_bias, w1, s1, b1, w2, s2, *,
 
 
 # ---------------------------------------------------------------------------
-# Wrappers.
+# The kernels' weight layout.
+# ---------------------------------------------------------------------------
+
+
+def int8_qkv_kmajor(wq, sq, bq, wk, sk, bk, wv, sv, bv, *, num_heads: int,
+                    dim_per_head: int) -> dict[str, torch.Tensor]:
+  """The q|k|v operands the int8 kernels read, from the JAX layout's [..,
+  D, N*H] weights and [.., N*H] scales and biases: ``wqkv`` int8 [..,
+  3*N*H', D] (K-major), ``sqkv`` and ``bqkv`` [.., 3*N*H'], each head
+  zero-padded to H' = ``padded_head_dim(H)`` (zero weights, scales and
+  biases: the padded q, k, v columns are exact zeros)."""
+  pad = lambda a: pad_heads(a, num_heads, dim_per_head, -1)
+  return {
+      'wqkv': torch.cat([pad(wq), pad(wk), pad(wv)], -1
+                        ).transpose(-1, -2).contiguous(),
+      'sqkv': torch.cat([pad(sq), pad(sk), pad(sv)], -1).contiguous(),
+      'bqkv': torch.cat([pad(bq), pad(bk), pad(bv)], -1).contiguous(),
+  }
+
+
+def int8_out_kmajor(wo, *, num_heads: int, dim_per_head: int
+                    ) -> dict[str, torch.Tensor]:
+  """``wo`` int8 [.., D, N*H'] (K-major) from the JAX layout's [.., N*H, D],
+  zero columns for the padded ctx columns."""
+  return {'wo': pad_heads(wo, num_heads, dim_per_head, -2
+                          ).transpose(-1, -2).contiguous()}
+
+
+def int8_ffn_kmajor(w1, w2) -> dict[str, torch.Tensor]:
+  """``w1`` int8 [.., F, D] and ``w2`` [.., D, F] (K-major) from the JAX
+  layout's [.., D, F] and [.., F, D]."""
+  return {'w1': w1.transpose(-1, -2).contiguous(),
+          'w2': w2.transpose(-1, -2).contiguous()}
+
+
+def _qkv_views(kmajor, nh):
+  """The K-major q|k|v operands as the twins' (wq, sq, bq, wk, .., bv):
+  [D, nh] views of ``wqkv`` and slices of ``sqkv`` and ``bqkv``."""
+  w = kmajor['wqkv'].transpose(-1, -2)
+  views = []
+  for i in range(3):
+    cols = slice(i * nh, (i + 1) * nh)
+    views += [w[:, cols], kmajor['sqkv'][cols], kmajor['bqkv'][cols]]
+  return views
+
+
+# ---------------------------------------------------------------------------
+# Wrappers.  Each takes the JAX package's signature, whose weights are [K,
+# N]; ``kmajor`` (``prepare_for_kernels``' ``fused`` operands, or the
+# ``int8_*_kmajor`` helpers') is the kernels' layout, and when it is given
+# the [K, N] weights it replaces are not read (they may be None): the
+# layer stack always gives it.  Given [K, N] weights on the card, a wrapper
+# builds the K-major operands itself, a copy off the model path.  The
+# twins read whichever layout they are given, the same products.
 # ---------------------------------------------------------------------------
 
 
@@ -163,18 +226,23 @@ def _check_multiple(**dims: int) -> None:
                'of 16 bytes)')
 
 
+def _check_shapes(cond: bool, what: str) -> None:
+  _lib.check(cond, f'{what} shapes do not match x')
+
+
 def int8_ffn_block_chunked(
     x: torch.Tensor, paddings: torch.Tensor,   # [rows, D], [rows, 1]
     ln_scale: torch.Tensor, ln_bias: torch.Tensor,       # [D]
     # int8 [D, F], fp32 [F], [F]
-    w1: torch.Tensor, s1: torch.Tensor, b1: torch.Tensor,
+    w1: torch.Tensor | None, s1: torch.Tensor, b1: torch.Tensor,
     # int8 [F, D], fp32 [D], [D]
-    w2: torch.Tensor, s2: torch.Tensor, b2: torch.Tensor,
+    w2: torch.Tensor | None, s2: torch.Tensor, b2: torch.Tensor,
     *,
     chunks: int,
     activation: str = 'gelu',
     epsilon: float = 1e-6,
     partial_out: bool = False,
+    kmajor: dict[str, torch.Tensor] | None = None,   # w1 [F, D], w2 [D, F]
     impl: str = 'auto',
 ) -> torch.Tensor:
   """K9: ``x + keep * FFN(LN(x))`` in W8A8 over ``chunks`` F-chunks, cast
@@ -182,23 +250,30 @@ def int8_ffn_block_chunked(
   check_partial_out(partial_out)
   _check_activation(activation)
   rows, d = x.shape
-  f = w1.shape[1]
+  f = s1.shape[0]
   if chunks < 1 or f % chunks:
     raise ValueError(f'{chunks} chunks do not divide F={f}')
-  if not _lib.use_kernel(impl, x):
+  on_card = _lib.use_kernel(impl, x)
+  if kmajor is None:
+    if on_card:
+      _check_shapes(w1.shape == (d, f) and w2.shape == (f, d), 'FFN operand')
+      kmajor = int8_ffn_kmajor(w1, w2)
+  else:
+    w1, w2 = kmajor['w1'].transpose(-1, -2), kmajor['w2'].transpose(-1, -2)
+  if not on_card:
     keep = 1.0 - paddings.float()
     parts = _reference_hidden_parts(x, keep, ln_scale, ln_bias, w1, s1, b1,
                                     w2, s2, chunks=chunks,
                                     activation=activation, epsilon=epsilon)
     return _chain(parts, b2, x, keep)
+  w1, w2 = kmajor['w1'], kmajor['w2']
   _lib.check_tensors(x.device, int8=_INT8, fp32=_FP32, x=x, paddings=paddings,
                      ln_scale=ln_scale, ln_bias=ln_bias, w1=w1, s1=s1, b1=b1,
                      w2=w2, s2=s2, b2=b2)
-  _lib.check(paddings.shape == (rows, 1) and ln_scale.shape == (d,)
-             and ln_bias.shape == (d,) and w1.shape == (d, f)
-             and s1.shape == (f,) and b1.shape == (f,) and w2.shape == (f, d)
-             and s2.shape == (d,) and b2.shape == (d,),
-             'FFN operand shapes do not match x')
+  _check_shapes(paddings.shape == (rows, 1) and ln_scale.shape == (d,)
+                and ln_bias.shape == (d,) and w1.shape == (f, d)
+                and b1.shape == (f,) and w2.shape == (d, f)
+                and s2.shape == (d,) and b2.shape == (d,), 'FFN operand')
   _check_multiple(D=d, F=f, F_chunk=f // chunks)
   dev = x.device
   i8 = lambda *s: torch.empty(s, dtype=torch.int8, device=dev)
@@ -214,28 +289,50 @@ def int8_ffn_block_chunked(
   return out
 
 
-def _check_attention(x, mask, ln_scale, ln_bias, wq, sq, bq, wk, sk, bk, wv,
-                     sv, bv, wo, so, bo, num_heads, dim_per_head, chunks):
-  b, t, d = x.shape
+def _attention_kmajor(qkv, wo, kmajor, x, num_heads, dim_per_head, on_card):
+  """(K-major operands or None, the twin's q|k|v and Wo [NH', D], H'): the
+  kernels' layout where the card needs it or ``kmajor`` was given, the
+  [K, N] one (and the true head dim) otherwise."""
+  hp = padded_head_dim(dim_per_head)
   nh = num_heads * dim_per_head
-  _lib.check_tensors(x.device, int8=_INT8, fp32=_FP32, x=x, mask=mask,
-                     ln_scale=ln_scale, ln_bias=ln_bias, wq=wq, sq=sq, bq=bq,
-                     wk=wk, sk=sk, bk=bk, wv=wv, sv=sv, bv=bv, wo=wo, so=so,
-                     bo=bo)
+  if kmajor is None:
+    if not on_card:
+      return None, qkv, wo, dim_per_head
+    d = x.shape[-1]
+    _check_shapes(all(w.shape == (d, nh) for w in qkv[::3])
+                  and all(v.shape == (nh,) for i, v in enumerate(qkv)
+                          if i % 3) and (wo is None or wo.shape == (nh, d)),
+                  'attention weight')
+    kmajor = int8_qkv_kmajor(*qkv, num_heads=num_heads,
+                             dim_per_head=dim_per_head)
+    if wo is not None:
+      kmajor.update(int8_out_kmajor(wo, num_heads=num_heads,
+                                    dim_per_head=dim_per_head))
+  wo_t = kmajor['wo'].transpose(-1, -2) if 'wo' in kmajor else None
+  return kmajor, _qkv_views(kmajor, num_heads * hp), wo_t, hp
+
+
+def _check_attention(x, mask, ln_scale, ln_bias, kmajor, so, bo, num_heads,
+                     hp, chunks):
+  b, t, d = x.shape
+  nh = num_heads * hp
+  _lib.check_tensors(x.device, int8=_INT8 + ('wqkv',), fp32=_FP32 + ('sqkv',),
+                     x=x, mask=mask, ln_scale=ln_scale, ln_bias=ln_bias,
+                     wqkv=kmajor['wqkv'], sqkv=kmajor['sqkv'],
+                     bqkv=kmajor['bqkv'], wo=kmajor['wo'], so=so, bo=bo)
   _lib.check(mask.ndim == 3 and mask.shape[0] in (1, b)
              and mask.shape[1] in (1, t) and mask.shape[2] == t,
              f'mask {tuple(mask.shape)} does not fit x {tuple(x.shape)}')
-  _lib.check(ln_scale.shape == (d,) and ln_bias.shape == (d,)
-             and all(w.shape == (d, nh) for w in (wq, wk, wv))
-             and all(v.shape == (nh,) for v in (sq, bq, sk, bk, sv, bv))
-             and wo.shape == (nh, d) and so.shape == (d,) and bo.shape == (d,),
-             'attention weight shapes do not match x and the head geometry')
+  _check_shapes(ln_scale.shape == (d,) and ln_bias.shape == (d,)
+                and kmajor['wqkv'].shape == (3 * nh, d)
+                and kmajor['sqkv'].shape == (3 * nh,)
+                and kmajor['bqkv'].shape == (3 * nh,)
+                and kmajor['wo'].shape == (d, nh) and so.shape == (d,)
+                and bo.shape == (d,), 'attention weight')
   _check_multiple(D=d, NH=nh, head_group=nh // chunks)
-  _lib.check(dim_per_head % 8 == 0,
-             f'dim_per_head {dim_per_head} must be a multiple of 8')
-  _lib.check(_lib.attention_fits(t, dim_per_head),
-             f'T={t}, H={dim_per_head}: the attention core takes head dims '
-             'that are multiples of 8, at most 128')
+  _lib.check(_lib.attention_fits(t, hp),
+             f'T={t}, H={hp}: the attention core takes head dims of at most '
+             '128')
 
 
 def int8_attention_block_chunked(
@@ -243,11 +340,11 @@ def int8_attention_block_chunked(
     mask: torch.Tensor,       # [B|1, T|1, T] additive fp32
     ln_scale: torch.Tensor, ln_bias: torch.Tensor,
     # int8 [D, N*H], fp32 [N*H], [N*H]
-    wq: torch.Tensor, sq: torch.Tensor, bq: torch.Tensor,
-    wk: torch.Tensor, sk: torch.Tensor, bk: torch.Tensor,
-    wv: torch.Tensor, sv: torch.Tensor, bv: torch.Tensor,
+    wq: torch.Tensor | None, sq: torch.Tensor | None, bq: torch.Tensor | None,
+    wk: torch.Tensor | None, sk: torch.Tensor | None, bk: torch.Tensor | None,
+    wv: torch.Tensor | None, sv: torch.Tensor | None, bv: torch.Tensor | None,
     # int8 [N*H, D], fp32 [D], [D]
-    wo: torch.Tensor, so: torch.Tensor, bo: torch.Tensor,
+    wo: torch.Tensor | None, so: torch.Tensor, bo: torch.Tensor,
     *,
     num_heads: int,
     dim_per_head: int,
@@ -256,6 +353,8 @@ def int8_attention_block_chunked(
     epsilon: float = 1e-6,
     query_scale: float = 1.0,
     partial_out: bool = False,
+    # wqkv [3*N*H', D], sqkv, bqkv [3*N*H'], wo [D, N*H']
+    kmajor: dict[str, torch.Tensor] | None = None,
     impl: str = 'auto',
 ) -> torch.Tensor:
   """K10: ``x + Attn(LN(x))`` in W8A8, the output product over ``chunks``
@@ -264,22 +363,25 @@ def int8_attention_block_chunked(
   check_partial_out(partial_out)
   if chunks < 1 or num_heads % chunks:
     raise ValueError(f'{chunks} chunks do not divide {num_heads} heads')
-  static = dict(num_heads=num_heads, dim_per_head=dim_per_head,
+  on_card = _lib.use_kernel(impl, x)
+  kmajor, qkv, wo_t, hp = _attention_kmajor(
+      (wq, sq, bq, wk, sk, bk, wv, sv, bv), wo, kmajor, x, num_heads,
+      dim_per_head, on_card)
+  static = dict(num_heads=num_heads, dim_per_head=hp,
                 logit_cap=float(logit_cap), epsilon=epsilon,
                 query_scale=float(query_scale))
-  weights = (wq, sq, bq, wk, sk, bk, wv, sv, bv)
-  if not _lib.use_kernel(impl, x):
-    ctx = _reference_ctx(x, mask, ln_scale, ln_bias, *weights, **static)
-    return _chain(_parts(ctx, wo, so, chunks), bo, x)
-  _check_attention(x, mask, ln_scale, ln_bias, *weights, wo, so, bo,
-                   num_heads, dim_per_head, chunks)
+  if not on_card:
+    ctx = _reference_ctx(x, mask, ln_scale, ln_bias, *qkv, **static)
+    return _chain(_parts(ctx, wo_t, so, chunks), bo, x)
+  _check_attention(x, mask, ln_scale, ln_bias, kmajor, so, bo, num_heads,
+                   hp, chunks)
   b, t, d = x.shape
-  rows, nh = b * t, num_heads * dim_per_head
+  rows, nh = b * t, num_heads * hp
   dev = x.device
   out = torch.empty_like(x)
   _lib.launch(
-      'vp_int8_attention_block', dev, x, mask, ln_scale, ln_bias, *weights,
-      wo, so, bo,
+      'vp_int8_attention_block', dev, x, mask, ln_scale, ln_bias,
+      kmajor['wqkv'], kmajor['sqkv'], kmajor['bqkv'], kmajor['wo'], so, bo,
       torch.empty((rows, d), dtype=torch.int8, device=dev),
       torch.empty(rows, dtype=torch.float32, device=dev),
       torch.empty((rows, 3 * nh), dtype=x.dtype, device=dev),
@@ -287,7 +389,7 @@ def int8_attention_block_chunked(
       torch.empty((rows, nh), dtype=torch.int8, device=dev),
       torch.empty((rows, chunks), dtype=torch.float32, device=dev),
       torch.empty_like(x) if chunks > 1 else None, out,
-      b, t, d, num_heads, dim_per_head, mask.shape[0], mask.shape[1], chunks,
+      b, t, d, num_heads, hp, mask.shape[0], mask.shape[1], chunks,
       float(logit_cap), epsilon, float(query_scale))
   _lib.LAUNCHES['int8_attention_block_chunked'] += 1
   _lib.CHUNK_LAUNCHES['int8_attention_block_chunked', chunks] += 1
@@ -300,16 +402,16 @@ def int8_layer_block(
     paddings: torch.Tensor,   # [B, T, 1]
     ln1_scale: torch.Tensor, ln1_bias: torch.Tensor,
     # int8 [D, N*H], fp32 [N*H], [N*H]
-    wq: torch.Tensor, sq: torch.Tensor, bq: torch.Tensor,
-    wk: torch.Tensor, sk: torch.Tensor, bk: torch.Tensor,
-    wv: torch.Tensor, sv: torch.Tensor, bv: torch.Tensor,
+    wq: torch.Tensor | None, sq: torch.Tensor | None, bq: torch.Tensor | None,
+    wk: torch.Tensor | None, sk: torch.Tensor | None, bk: torch.Tensor | None,
+    wv: torch.Tensor | None, sv: torch.Tensor | None, bv: torch.Tensor | None,
     # int8 [N*H, D], fp32 [D], [D]
-    wo: torch.Tensor, so: torch.Tensor, bo: torch.Tensor,
+    wo: torch.Tensor | None, so: torch.Tensor, bo: torch.Tensor,
     ln2_scale: torch.Tensor, ln2_bias: torch.Tensor,
     # int8 [D, F], fp32 [F], [F]
-    w1: torch.Tensor, s1: torch.Tensor, b1: torch.Tensor,
+    w1: torch.Tensor | None, s1: torch.Tensor, b1: torch.Tensor,
     # int8 [F, D], fp32 [D], [D]
-    w2: torch.Tensor, s2: torch.Tensor, b2: torch.Tensor,
+    w2: torch.Tensor | None, s2: torch.Tensor, b2: torch.Tensor,
     *,
     num_heads: int,
     dim_per_head: int,
@@ -319,6 +421,8 @@ def int8_layer_block(
     activation: str = 'gelu',
     head_chunks: int | None = None,
     ffn_chunks: int | None = None,
+    # K10's and K9's operands together
+    kmajor: dict[str, torch.Tensor] | None = None,
     impl: str = 'auto',
 ) -> torch.Tensor:
   """K11: a whole pre-norm layer in W8A8, each half's chunk products summed
@@ -327,7 +431,7 @@ def int8_layer_block(
   _check_activation(activation)
   b, t, d = x.shape
   nh = num_heads * dim_per_head
-  f = w1.shape[1]
+  f = s1.shape[0]
   if head_chunks is None or ffn_chunks is None:
     cfg = _layer_int8_cfg(t, d, nh, f, num_heads, x.element_size())
     if cfg is None:
@@ -337,41 +441,50 @@ def int8_layer_block(
   if num_heads % head_chunks or f % ffn_chunks:
     raise ValueError(f'({head_chunks}, {ffn_chunks}) chunks do not divide '
                      f'{num_heads} heads and F={f}')
-  static = dict(num_heads=num_heads, dim_per_head=dim_per_head,
+  on_card = _lib.use_kernel(impl, x)
+  attn_k, qkv, wo_t, hp = _attention_kmajor(
+      (wq, sq, bq, wk, sk, bk, wv, sv, bv), wo, kmajor, x, num_heads,
+      dim_per_head, on_card)
+  if kmajor is None and on_card:
+    _check_shapes(w1.shape == (d, f) and w2.shape == (f, d), 'FFN operand')
+    kmajor = dict(attn_k, **int8_ffn_kmajor(w1, w2))
+  if kmajor is not None:
+    w1, w2 = kmajor['w1'].transpose(-1, -2), kmajor['w2'].transpose(-1, -2)
+  static = dict(num_heads=num_heads, dim_per_head=hp,
                 logit_cap=float(logit_cap), epsilon=epsilon,
                 query_scale=float(query_scale))
-  attn = (wq, sq, bq, wk, sk, bk, wv, sv, bv)
-  if not _lib.use_kernel(impl, x):
-    ctx = _reference_ctx(x, mask, ln1_scale, ln1_bias, *attn, **static)
-    x1 = _sum(_parts(ctx, wo, so, head_chunks), bo, x)
+  if not on_card:
+    ctx = _reference_ctx(x, mask, ln1_scale, ln1_bias, *qkv, **static)
+    x1 = _sum(_parts(ctx, wo_t, so, head_chunks), bo, x)
     keep = 1.0 - paddings.float()
     parts = _reference_hidden_parts(x1, keep, ln2_scale, ln2_bias, w1, s1,
                                     b1, w2, s2, chunks=ffn_chunks,
                                     activation=activation, epsilon=epsilon)
     return _sum(parts, b2, x1, keep)
-  _check_attention(x, mask, ln1_scale, ln1_bias, *attn, wo, so, bo,
-                   num_heads, dim_per_head, head_chunks)
+  _check_attention(x, mask, ln1_scale, ln1_bias, kmajor, so, bo, num_heads,
+                   hp, head_chunks)
+  w1, w2 = kmajor['w1'], kmajor['w2']
   _lib.check_tensors(x.device, int8=_INT8, fp32=_FP32, paddings=paddings,
                      ln2_scale=ln2_scale, ln2_bias=ln2_bias, w1=w1, s1=s1,
                      b1=b1, w2=w2, s2=s2, b2=b2)
-  _lib.check(paddings.shape == (b, t, 1) and ln2_scale.shape == (d,)
-             and ln2_bias.shape == (d,) and w1.shape == (d, f)
-             and s1.shape == (f,) and b1.shape == (f,) and w2.shape == (f, d)
-             and s2.shape == (d,) and b2.shape == (d,),
-             'FFN operand shapes do not match x')
+  _check_shapes(paddings.shape == (b, t, 1) and ln2_scale.shape == (d,)
+                and ln2_bias.shape == (d,) and w1.shape == (f, d)
+                and b1.shape == (f,) and w2.shape == (d, f)
+                and s2.shape == (d,) and b2.shape == (d,), 'FFN operand')
   _check_multiple(F=f, F_chunk=f // ffn_chunks)
-  rows, dev = b * t, x.device
+  rows, dev, nh = b * t, x.device, num_heads * hp
   i8 = lambda *s: torch.empty(s, dtype=torch.int8, device=dev)
   f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
   act = lambda *s: torch.empty(s, dtype=x.dtype, device=dev)
   out = torch.empty_like(x)
   _lib.launch(
       'vp_int8_layer_block', dev, x, mask, paddings, ln1_scale, ln1_bias,
-      *attn, wo, so, bo, ln2_scale, ln2_bias, w1, s1, b1, w2, s2, b2,
+      kmajor['wqkv'], kmajor['sqkv'], kmajor['bqkv'], kmajor['wo'], so, bo,
+      ln2_scale, ln2_bias, w1, s1, b1, w2, s2, b2,
       i8(rows, d), f32(rows), act(rows, 3 * nh), act(rows, nh), i8(rows, nh),
       f32(rows, head_chunks), f32(rows, d), act(rows, d), f32(rows, f),
       i8(rows, f), f32(rows, ffn_chunks), out,
-      b, t, d, num_heads, dim_per_head, f, mask.shape[0], mask.shape[1],
+      b, t, d, num_heads, hp, f, mask.shape[0], mask.shape[1],
       head_chunks, ffn_chunks, ACTIVATIONS[activation], float(logit_cap),
       epsilon, float(query_scale))
   _lib.LAUNCHES['int8_layer_block'] += 1
@@ -382,35 +495,44 @@ def int8_qkv_projection(
     x: torch.Tensor,                                       # [rows, D]
     ln_scale: torch.Tensor, ln_bias: torch.Tensor,         # [D]
     # int8 [D, N*H], fp32 [N*H], [N*H]
-    wq: torch.Tensor, sq: torch.Tensor, bq: torch.Tensor,
-    wk: torch.Tensor, sk: torch.Tensor, bk: torch.Tensor,
-    wv: torch.Tensor, sv: torch.Tensor, bv: torch.Tensor,
+    wq: torch.Tensor | None, sq: torch.Tensor | None, bq: torch.Tensor | None,
+    wk: torch.Tensor | None, sk: torch.Tensor | None, bk: torch.Tensor | None,
+    wv: torch.Tensor | None, sv: torch.Tensor | None, bv: torch.Tensor | None,
     *,
     epsilon: float = 1e-6,
     query_scale: float = 1.0,
+    kmajor: dict[str, torch.Tensor] | None = None,   # wqkv, sqkv, bqkv
     impl: str = 'auto',
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
   """K12a: LN + W8A8 q/k/v projections, the query scale folded into q ->
   q, k, v [rows, N*H] (on the card, column blocks of one [rows, 3*N*H]
-  buffer)."""
+  buffer, written by one product)."""
   weights = (wq, sq, bq, wk, sk, bk, wv, sv, bv)
-  if not _lib.use_kernel(impl, x):
+  on_card = _lib.use_kernel(impl, x)
+  nh = (kmajor['sqkv'].shape[0] // 3 if kmajor is not None
+        else sq.shape[0])
+  if kmajor is None and on_card:
+    # One head of N*H: the projection has no head geometry to pad.
+    kmajor, weights, _, _ = _attention_kmajor(weights, None, None, x, 1, nh,
+                                              on_card)
+  elif kmajor is not None:
+    weights = _qkv_views(kmajor, nh)
+  if not on_card:
     return _reference_qkv(x, ln_scale, ln_bias, *weights, epsilon=epsilon,
                           query_scale=float(query_scale))
   rows, d = x.shape
-  nh = wq.shape[1]
-  _lib.check_tensors(x.device, int8=_INT8, fp32=_FP32, x=x, ln_scale=ln_scale,
-                     ln_bias=ln_bias, wq=wq, sq=sq, bq=bq, wk=wk, sk=sk, bk=bk,
-                     wv=wv, sv=sv, bv=bv)
-  _lib.check(ln_scale.shape == (d,) and ln_bias.shape == (d,)
-             and all(w.shape == (d, nh) for w in (wq, wk, wv))
-             and all(v.shape == (nh,) for v in (sq, bq, sk, bk, sv, bv)),
-             'projection weight shapes do not match x')
+  wqkv, sqkv, bqkv = kmajor['wqkv'], kmajor['sqkv'], kmajor['bqkv']
+  _lib.check_tensors(x.device, int8=('wqkv',), fp32=('sqkv',), x=x,
+                     ln_scale=ln_scale, ln_bias=ln_bias, wqkv=wqkv, sqkv=sqkv,
+                     bqkv=bqkv)
+  _check_shapes(ln_scale.shape == (d,) and ln_bias.shape == (d,)
+                and wqkv.shape == (3 * nh, d) and sqkv.shape == (3 * nh,)
+                and bqkv.shape == (3 * nh,), 'projection weight')
   _check_multiple(D=d, NH=nh)
   dev = x.device
   qkv = torch.empty((rows, 3 * nh), dtype=x.dtype, device=dev)
-  _lib.launch('vp_int8_qkv_projection', dev, x, ln_scale, ln_bias, *weights,
-              torch.empty((rows, d), dtype=torch.int8, device=dev),
+  _lib.launch('vp_int8_qkv_projection', dev, x, ln_scale, ln_bias, wqkv, sqkv,
+              bqkv, torch.empty((rows, d), dtype=torch.int8, device=dev),
               torch.empty(rows, dtype=torch.float32, device=dev), qkv,
               rows, d, nh, epsilon, float(query_scale))
   _lib.LAUNCHES['int8_qkv_projection'] += 1
@@ -421,23 +543,31 @@ def int8_out_projection(
     ctx: torch.Tensor,        # [rows, N*H]
     resid: torch.Tensor,      # [rows, D] (the pre-attention input)
     # int8 [N*H, D], fp32 [D], [D]
-    wo: torch.Tensor, so: torch.Tensor, bo: torch.Tensor,
+    wo: torch.Tensor | None, so: torch.Tensor, bo: torch.Tensor,
     *,
     partial_out: bool = False,
+    kmajor: dict[str, torch.Tensor] | None = None,   # wo [D, N*H]
     impl: str = 'auto',
 ) -> torch.Tensor:
   """K12b: W8A8 output projection + bias + residual -> [rows, D] in
   resid's dtype."""
   check_partial_out(partial_out)
-  if not _lib.use_kernel(impl, ctx):
+  on_card = _lib.use_kernel(impl, ctx)
+  if kmajor is not None:
+    wo = kmajor['wo'].transpose(-1, -2)
+  if not on_card:
     return _chain(_parts(ctx, wo, so, 1), bo, resid)
   rows, nh = ctx.shape
-  d = wo.shape[1]
+  d = resid.shape[1]
+  if kmajor is None:
+    _check_shapes(wo.shape == (nh, d), 'out-projection operand')
+    kmajor = {'wo': wo.t().contiguous()}
+  wo = kmajor['wo']
   _lib.check_tensors(ctx.device, int8=_INT8, fp32=_FP32, ctx=ctx, resid=resid,
                      wo=wo, so=so, bo=bo)
-  _lib.check(resid.shape == (rows, d) and wo.shape == (nh, d)
-             and so.shape == (d,) and bo.shape == (d,),
-             'out-projection operand shapes do not match ctx')
+  _check_shapes(resid.shape == (rows, d) and wo.shape == (d, nh)
+                and so.shape == (d,) and bo.shape == (d,),
+                'out-projection operand')
   _check_multiple(D=d, NH=nh)
   dev = ctx.device
   out = torch.empty_like(resid)
@@ -453,10 +583,10 @@ def int8_projected_flash_attention(
     x: torch.Tensor,            # [B, T, D]
     atten_mask: torch.Tensor,   # [B|1, 1, T|1, T] additive fp32
     ln_scale: torch.Tensor, ln_bias: torch.Tensor,
-    wq: torch.Tensor, sq: torch.Tensor, bq: torch.Tensor,
-    wk: torch.Tensor, sk: torch.Tensor, bk: torch.Tensor,
-    wv: torch.Tensor, sv: torch.Tensor, bv: torch.Tensor,
-    wo: torch.Tensor, so: torch.Tensor, bo: torch.Tensor,
+    wq: torch.Tensor | None, sq: torch.Tensor | None, bq: torch.Tensor | None,
+    wk: torch.Tensor | None, sk: torch.Tensor | None, bk: torch.Tensor | None,
+    wv: torch.Tensor | None, sv: torch.Tensor | None, bv: torch.Tensor | None,
+    wo: torch.Tensor | None, so: torch.Tensor, bo: torch.Tensor,
     *,
     num_heads: int,
     dim_per_head: int,
@@ -464,24 +594,76 @@ def int8_projected_flash_attention(
     epsilon: float = 1e-6,
     query_scale: float = 1.0,
     partial_out: bool = False,
+    kmajor: dict[str, torch.Tensor] | None = None,   # as K10's
     impl: str = 'auto',
 ) -> torch.Tensor:
   """The attention half for any T: K12a -> K5 (``flash_attention``) ->
   K12b; returns ``x + attn(x)`` [B, T, D]."""
   check_partial_out(partial_out)
   b, t, d = x.shape
-  n, h = num_heads, dim_per_head
+  kmajor, _, _, h = _attention_kmajor(
+      (wq, sq, bq, wk, sk, bk, wv, sv, bv), wo, kmajor, x, num_heads,
+      dim_per_head, _lib.use_kernel(impl, x))
+  n = num_heads
   x2d = x.reshape(b * t, d)
   q, k, v = int8_qkv_projection(
       x2d, ln_scale, ln_bias, wq, sq, bq, wk, sk, bk, wv, sv, bv,
-      epsilon=epsilon, query_scale=query_scale, impl=impl)
+      epsilon=epsilon, query_scale=query_scale, kmajor=kmajor, impl=impl)
   heads = lambda a: a.reshape(b, t, n, h).transpose(1, 2).contiguous()
   ctx = flash.fused_attention(heads(q), heads(k), heads(v),
                               atten_mask.squeeze(1).float().contiguous(),
                               logit_cap=logit_cap, impl=impl)
   ctx = ctx.transpose(1, 2).reshape(b * t, n * h)
-  out = int8_out_projection(ctx, x2d, wo, so, bo, impl=impl)
+  out = int8_out_projection(ctx, x2d, wo, so, bo, kmajor=kmajor, impl=impl)
   return out.reshape(b, t, d)
+
+
+# ---------------------------------------------------------------------------
+# The int8 GEMM alone.
+# ---------------------------------------------------------------------------
+
+GEMM_I8_EPILOGUES = {'qkv': 0, 'act_keep': 1, 'residual': 2, 'int32': 3}
+
+
+def gemm_i8(a: torch.Tensor, b: torch.Tensor, *, epilogue: str = 'int32',
+            a_scale: torch.Tensor | None = None,
+            b_scale: torch.Tensor | None = None,
+            bias: torch.Tensor | None = None,
+            pads: torch.Tensor | None = None,
+            residual: torch.Tensor | None = None,
+            activation: str | None = None, col_scale: float = 1.0,
+            scaled_cols: int = 0) -> torch.Tensor:
+  """The product stage of K9-K12b alone, for measurement: ``epilogue(a
+  int8 [M, K] @ b int8 [N, K]^T)`` -> [M, N] through the hand-written s8
+  wgmma GEMM (``csrc/int8_blocks.cu``): 'int32' the exact sums (int32),
+  else v = (float(sum) * a_scale[m]) * b_scale[n] and 'qkv': v + bias, x
+  ``col_scale`` on the first ``scaled_cols`` columns (bf16); 'act_keep':
+  act(v + bias) x keep (fp32); 'residual': (v [+ bias]) [x keep] +
+  residual (bf16).  CUDA tensors only: the blocks' twins are its plain
+  versions."""
+  m, k = a.shape
+  n = b.shape[0]
+  _lib.check(a.is_cuda, 'gemm_i8 runs on CUDA tensors only')
+  operands = dict(a=a, b=b, a_scale=a_scale, b_scale=b_scale, bias=bias,
+                  pads=pads, residual=residual)
+  _lib.check_tensors(a.device, int8=('a', 'b'), fp32=('a_scale', 'b_scale'),
+                     **{key: t for key, t in operands.items()
+                        if t is not None})
+  _lib.check(b.shape[1] == k and k % 16 == 0 and n % 2 == 0,
+             f'a {tuple(a.shape)} @ b {tuple(b.shape)}^T: K must agree and '
+             'be a multiple of 16, N even')
+  _lib.check(epilogue == 'int32' or (a_scale is not None
+                                     and b_scale is not None),
+             f"epilogue {epilogue!r} needs a_scale and b_scale")
+  _lib.check(epilogue != 'residual' or residual is not None,
+             "epilogue 'residual' needs a residual")
+  dtype = {'int32': torch.int32, 'act_keep': torch.float32}.get(
+      epilogue, torch.bfloat16)
+  out = torch.empty((m, n), dtype=dtype, device=a.device)
+  _lib.launch('vp_gemm_i8', a.device, a, b, a_scale, b_scale, bias, pads,
+              residual, out, m, n, k, GEMM_I8_EPILOGUES[epilogue],
+              ACTIVATIONS.get(activation, 0), col_scale, scaled_cols)
+  return out
 
 
 # ---------------------------------------------------------------------------

@@ -4,9 +4,10 @@ Ports ``videoprism_tpu/ops/pallas/layer_norm.py`` ``fused_layer_norm_2d``
 (``_ln_kernel``): [rows, D] -> [rows, D], mean and variance in fp32, eps
 1e-6, ``(x - mean) * rsqrt(var + eps) * (scale + 1) + bias`` (``* scale``
 with ``direct_scale``), cast once.  On a CUDA tensor it runs
-``csrc/ln_rows.cu`` (``vp_layer_norm``, one warp per row); on a CPU tensor,
-or with ``impl='reference'``, the plain twin beside it, which rounds at the
-same point.  The kernel takes bf16 and raises on fp32 CUDA tensors.
+``csrc/ln_rows.cu`` (``vp_layer_norm``, one warp per row held in
+registers); on a CPU tensor, or with ``impl='reference'``, the plain twin
+beside it, which rounds at the same point.  The kernel takes bf16 and
+raises on fp32 CUDA tensors.
 
 The TPU gate ``rows % 8 == 0 and D % 128 == 0`` (``supports``) is the
 TPU's (8, 128) tiling and is not ported: any row count and any even D run.
@@ -46,9 +47,10 @@ def _layer_norm_2d(x, scale, bias, epsilon, direct_scale, impl):
     return ln_f32(x, scale, bias, epsilon, direct_scale).to(x.dtype)
   rows, d = x.shape
   _lib.check_tensors(x.device, x=x, scale=scale, bias=bias)
-  _lib.check(scale.shape == (d,) and bias.shape == (d,) and d % 2 == 0,
-             f'scale and bias must be [D] with D even; x is {tuple(x.shape)}')
-  _lib.check(rows > 0, 'x has no rows')
+  if scale.shape != (d,) or bias.shape != (d,) or d % 2 or rows == 0:
+    _lib.check(rows > 0, 'x has no rows')
+    raise ValueError(
+        f'scale and bias must be [D] with D even; x is {tuple(x.shape)}')
   out = torch.empty_like(x)
   _lib.launch('vp_layer_norm', x.device, x, scale, bias, out, rows, d,
               int(direct_scale), epsilon)

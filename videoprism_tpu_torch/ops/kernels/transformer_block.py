@@ -141,6 +141,29 @@ def _reference_attention_ctx(x, mask, ln_scale, ln_bias, wqkv, bqkv, *,
   return ctx.transpose(1, 2).reshape(b, t, nh)
 
 
+def padded_head_dim(head_dim: int) -> int:
+  """The head dim the kernels run: ``head_dim`` rounded up to a multiple
+  of 8, so that every row of a head is whole 16-byte chunks."""
+  return -(-head_dim // 8) * 8
+
+
+def pad_heads(a: torch.Tensor, num_heads: int, head_dim: int,
+              axis: int) -> torch.Tensor:
+  """``a`` with its ``num_heads * head_dim`` axis ``axis`` laid out head by
+  head, each head zero-padded to :func:`padded_head_dim`; ``a`` itself
+  where the head dim needs none.  Zero q and k columns add exact zeros to
+  every logit, zero v columns give zero ctx columns, and those meet zero
+  rows of Wo: the padded function is the unpadded one, exactly."""
+  hp = padded_head_dim(head_dim)
+  if hp == head_dim:
+    return a
+  axis %= a.ndim
+  lead, tail = a.shape[:axis], a.shape[axis + 1:]
+  a = a.reshape(*lead, num_heads, head_dim, *tail)
+  a = F.pad(a, [0, 0] * len(tail) + [0, hp - head_dim])
+  return a.reshape(*lead, num_heads * hp, *tail)
+
+
 def check_partial_out(partial_out: bool) -> None:
   if partial_out:
     raise NotImplementedError(
@@ -198,11 +221,15 @@ def _launch_attention(x, mask, ln_scale, ln_bias, wqkv, bqkv, wo, bo, *,
              and wo.shape == (nh, d) and bo.shape == (d,),
              'weight shapes do not match x and the head geometry')
   _lib.check(d % 8 == 0, f'model dim {d} must be a multiple of 8')
-  _lib.check(dim_per_head % 8 == 0,
-             f'dim_per_head {dim_per_head} must be a multiple of 8')
-  _lib.check(_lib.attention_fits(t, dim_per_head),
+  hp = padded_head_dim(dim_per_head)
+  _lib.check(_lib.attention_fits(t, hp),
              f'T={t}, H={dim_per_head}: the attention core takes head dims '
-             'that are multiples of 8, at most 128')
+             'of at most 128')
+  if hp != dim_per_head:   # off the model path: prepare_for_kernels pads
+    wqkv = pad_heads(wqkv, 3 * num_heads, dim_per_head, -1)
+    bqkv = pad_heads(bqkv, 3 * num_heads, dim_per_head, -1)
+    wo = pad_heads(wo, num_heads, dim_per_head, 0)
+    nh, dim_per_head = num_heads * hp, hp
   h = torch.empty((b * t, d), dtype=x.dtype, device=x.device)
   qkv = torch.empty((b * t, 3 * nh), dtype=x.dtype, device=x.device)
   ctx = torch.empty((b * t, nh), dtype=x.dtype, device=x.device)

@@ -43,6 +43,7 @@ from videoprism_tpu_torch.ops import attention as attention_lib
 from videoprism_tpu_torch.ops import basic
 from videoprism_tpu_torch.ops import masks as mask_lib
 from videoprism_tpu_torch.ops.kernels import _lib
+from videoprism_tpu_torch.ops.kernels import flash_attention as flash
 from videoprism_tpu_torch.ops.kernels import int8_blocks as i8
 from videoprism_tpu_torch.ops.kernels import transformer_block as tb
 
@@ -183,10 +184,27 @@ def int8_plan(b: int, t: int, d: int, num_heads: int, dim_per_head: int,
 
 
 def int8_attention_weights(attn: Params) -> dict[str, torch.Tensor]:
-  """Wo int8 [.., N*H, D] from the int8 (D, N, H) ``post`` weights (the
-  reference's ``transpose(1, 2, 0).reshape(nh, d)``); leading (layer) axes
-  are kept."""
-  return {'wo': attn['post']['w'].flatten(-2).transpose(-1, -2).contiguous()}
+  """The int8 attention kernels' operands (K10, K11, K12a and K12b) from
+  an int8 ``self_attention`` tree of (D, N, H) weights
+  (``int8_blocks.int8_qkv_kmajor`` / ``int8_out_kmajor``): ``wqkv`` [..,
+  3*N*H', D] (q|k|v, K-major), ``sqkv`` and ``bqkv`` [.., 3*N*H'] and
+  ``wo`` [.., D, N*H'] (K-major: the ``post`` weights flattened, a view
+  where H needs no padding), each head zero-padded to H' =
+  ``padded_head_dim(H)``; leading (layer) axes are kept."""
+  n, h = attn['query']['w'].shape[-2:]
+  geometry = dict(num_heads=n, dim_per_head=h)
+  qkv = [attn[name][key].flatten(-2) for name in ('query', 'key', 'value')
+         for key in ('w', 'w_scale', 'b')]
+  wo = attn['post']['w'].flatten(-2).transpose(-1, -2)
+  return dict(i8.int8_qkv_kmajor(*qkv, **geometry),
+              **i8.int8_out_kmajor(wo, **geometry))
+
+
+def int8_ffn_weights(ff: Params) -> dict[str, torch.Tensor]:
+  """K9's and K11's FFN operands from an int8 ``ff_layer`` tree: ``w1``
+  [.., F, D] and ``w2`` [.., D, F], K-major."""
+  return i8.int8_ffn_kmajor(ff['ffn_layer1']['linear']['kernel'],
+                            ff['ffn_layer2']['linear']['kernel'])
 
 
 def _int8_layer(params: Params, inputs: torch.Tensor,
@@ -201,8 +219,10 @@ def _int8_layer(params: Params, inputs: torch.Tensor,
   head dims the port serves) takes K12a + K5 + K12b where that is the same
   arithmetic (one head group; K11 also one
   F-chunk, its FFN half then being K9's), and raises ``ValueError`` naming
-  the limit otherwise, or where K5 cannot take the head dim (not a
-  multiple of 8; every config's is, giant's 88 too).
+  the limit otherwise, or where K5 cannot take the head dim (padded to a
+  multiple of 8, past its 128).  The kernels read the K-major operands
+  (:func:`int8_attention_weights`, :func:`int8_ffn_weights`), each head
+  padded to a multiple of 8.
   The conditions of the reference's route that the port's layer config
   cannot break (inference, the 'pre' policy, residual weight 1, biases)
   are not asked again."""
@@ -211,7 +231,6 @@ def _int8_layer(params: Params, inputs: torch.Tensor,
   b, t, d = inputs.shape
   attn, ff = params['self_attention'], params['ff_layer']
   n, h = attn['query']['w'].shape[-2:]
-  nh = n * h
   f = ff['ffn_layer1']['linear']['kernel'].shape[-1]
   plan = int8_plan(b, t, d, n, h, f, inputs.element_size(),
                    causal=cfg.enable_causal_atten,
@@ -219,14 +238,16 @@ def _int8_layer(params: Params, inputs: torch.Tensor,
   if plan is None:
     return None
   dtype = cfg.dtype
+  hp = tb.padded_head_dim(h)
   cast = lambda a: basic.cast_floating(a, dtype)
-  flat = lambda p: (p['w'].reshape(d, nh), p['w_scale'].reshape(nh).float(),
-                    cast(p['b']).reshape(nh))
-  qkv = (*flat(attn['query']), *flat(attn['key']), *flat(attn['value']))
-  out_w = ((attn.get('fused') or int8_attention_weights(attn))['wo'],
-           attn['post']['w_scale'].float(), cast(attn['post']['b']))
-  lin = lambda name: (ff[name]['linear']['kernel'],
-                      ff[name]['linear']['kernel_scale'].float(),
+  # The kernels read the K-major operands (prepare_for_kernels' ``fused``,
+  # else built here); the [K, N] weights they replace are not passed.
+  attn_k = dict(attn.get('fused') or int8_attention_weights(attn))
+  attn_k['bqkv'] = cast(attn_k['bqkv'])
+  ffn_k = ff.get('fused') or int8_ffn_weights(ff)
+  qkv = (None,) * 9
+  out_w = (None, attn['post']['w_scale'].float(), cast(attn['post']['b']))
+  lin = lambda name: (None, ff[name]['linear']['kernel_scale'].float(),
                       cast(ff[name]['linear']['bias']))
   ln = lambda p: (cast(p['scale']), cast(p['bias']))
   static = dict(num_heads=n, dim_per_head=h, logit_cap=cfg.logit_cap,
@@ -236,7 +257,7 @@ def _int8_layer(params: Params, inputs: torch.Tensor,
   layer, attn_chunks, projected = plan.layer, plan.attn_chunks, plan.projected
   ffn_chunks = plan.ffn_chunks
   on_card = _lib.use_kernel(impl, inputs)
-  if (layer or attn_chunks) and on_card and not _lib.attention_fits(t, h):
+  if (layer or attn_chunks) and on_card and not _lib.attention_fits(t, hp):
     one_chunk = layer == (1, 1) if layer else attn_chunks == 1
     if not one_chunk:
       raise ValueError(
@@ -247,12 +268,12 @@ def _int8_layer(params: Params, inputs: torch.Tensor,
     if layer:
       ffn_chunks = 1
     layer, attn_chunks, projected = None, None, True
-  if projected and on_card and h % 8:
+  if projected and on_card and hp > flash.MAX_HEAD_DIM:
     raise ValueError(
         f'T={t} at head dim {h}: the int8 attention block holds T <= '
-        f'{min(_lib.max_attention_t(h), MAX_FUSED_ATTENTION_T)} at this '
+        f'{min(_lib.max_attention_t(hp), MAX_FUSED_ATTENTION_T)} at this '
         'head dim, and the long-sequence route (K12a + K5 + K12b) takes '
-        'head dims that are multiples of 8 only')
+        f'head dims of at most {flash.MAX_HEAD_DIM}')
   if layer:
     pads = (paddings.reshape(b, t, 1).to(dtype) if paddings is not None
             else torch.zeros((b, t, 1), dtype=dtype, device=inputs.device))
@@ -260,16 +281,16 @@ def _int8_layer(params: Params, inputs: torch.Tensor,
         inputs, mask3, pads, *ln(params['layer_norm']), *qkv, *out_w,
         *ln(ff['layer_norm']), *lin('ffn_layer1'), *lin('ffn_layer2'),
         activation=cfg.activation, head_chunks=layer[0],
-        ffn_chunks=layer[1], **static)
+        ffn_chunks=layer[1], kmajor=dict(attn_k, **ffn_k), **static)
 
   if attn_chunks:
     x = i8.int8_attention_block_chunked(
         inputs, mask3, *ln(params['layer_norm']), *qkv, *out_w,
-        chunks=attn_chunks, **static)
+        chunks=attn_chunks, kmajor=attn_k, **static)
   elif projected:
     x = i8.int8_projected_flash_attention(
         inputs, atten_mask.float(), *ln(params['layer_norm']), *qkv, *out_w,
-        **static)
+        kmajor=attn_k, **static)
   else:   # no int8 attention route: the attention half dequantized
     attn_deq = quantization.dequantize({'self_attention': attn},
                                        dtype)['self_attention']
@@ -289,23 +310,27 @@ def _int8_layer(params: Params, inputs: torch.Tensor,
   out = i8.int8_ffn_block_chunked(
       x.reshape(b * t, d), pad_rows, *ln(ff['layer_norm']),
       *lin('ffn_layer1'), *lin('ffn_layer2'), chunks=ffn_chunks,
-      activation=cfg.activation, epsilon=1e-6, impl=impl)
+      activation=cfg.activation, epsilon=1e-6, kmajor=ffn_k, impl=impl)
   return out.reshape(b, t, d)
 
 
 def fused_attention_weights(attn: Params, dtype: torch.dtype
                             ) -> dict[str, torch.Tensor]:
-  """Wqkv [D, 3*N*H], bqkv [3*N*H] and Wo [N*H, D] from (D, N, H) weights.
+  """Wqkv [D, 3*N*H'], bqkv [3*N*H'] and Wo [N*H', D] from (D, N, H)
+  weights, each head zero-padded to H' = ``padded_head_dim(H)`` (the
+  kernels' 16-byte rows; the same function, exactly).
 
   Leading (layer) axes are kept, so this serves one layer or a stack.
   """
-  cast = lambda a: basic.cast_floating(a, dtype)
-  flat = lambda name: cast(attn[name]['w']).flatten(-2)
+  n, h = attn['query']['w'].shape[-2:]
+  flat = lambda a: tb.pad_heads(basic.cast_floating(a, dtype).flatten(-2), n,
+                                h, -1)
   return {
-      'wqkv': torch.cat([flat('query'), flat('key'), flat('value')], dim=-1),
-      'bqkv': torch.cat([cast(attn[n]['b']).flatten(-2)
+      'wqkv': torch.cat([flat(attn[n]['w']) for n in
+                         ('query', 'key', 'value')], dim=-1),
+      'bqkv': torch.cat([flat(attn[n]['b'])
                          for n in ('query', 'key', 'value')], dim=-1),
-      'wo': flat('post').transpose(-1, -2).contiguous(),
+      'wo': flat(attn['post']['w']).transpose(-1, -2).contiguous(),
   }
 
 
@@ -327,7 +352,8 @@ def transformer_layer(params: Params, inputs: torch.Tensor,
   does not take (``_lib.attention_fits``), or past the route's 1024 tokens,
   takes the composed half (K6 + K5; giant's 88 too), and raises
   ``ValueError`` naming the limit where K5 cannot take the head dim either
-  (not a multiple of 8).
+  (past its 128).  A head dim that is not a multiple of 8 runs padded to
+  one (``fused_attention_weights``; K5 pads q, k and v itself).
   """
   _check_policy(cfg)
   dtype = cfg.dtype
@@ -359,13 +385,14 @@ def transformer_layer(params: Params, inputs: torch.Tensor,
       causal=cfg.enable_causal_atten)
   cast = lambda a: basic.cast_floating(a, dtype)
   on_card = _lib.use_kernel(impl, inputs)
-  if fused_attention_supported(t, atten_mask, h if on_card else None):
+  hp = tb.padded_head_dim(h)
+  if fused_attention_supported(t, atten_mask, hp if on_card else None):
     fused = attn.get('fused')
     if fused is None or attn['query']['w'].requires_grad:
       # Under training the cached fused copy is stale after the first
       # update and no gradient reaches it: build it from the leaves.
       fused = fused_attention_weights(attn, dtype)
-    kw = dict(num_heads=n, dim_per_head=h, logit_cap=cfg.logit_cap,
+    kw = dict(num_heads=n, dim_per_head=hp, logit_cap=cfg.logit_cap,
               epsilon=1e-6, query_scale=h ** -0.5, impl=impl)
     if attn_chunks:
       block, kw['chunks'] = tb.fused_attention_block_chunked, attn_chunks
@@ -378,12 +405,12 @@ def transformer_layer(params: Params, inputs: torch.Tensor,
         cast(fused['wqkv']), cast(fused['bqkv']), cast(fused['wo']),
         cast(attn['post']['b']), **kw)
   else:   # the composed attention half: K6 LN, K5 attention, residual
-    if on_card and h % 8:
+    if on_card and hp > flash.MAX_HEAD_DIM:
       raise ValueError(
           f'T={t} at head dim {h}: the fused attention kernel holds T <= '
-          f'{min(_lib.max_attention_t(h), MAX_FUSED_ATTENTION_T)} at this '
+          f'{min(_lib.max_attention_t(hp), MAX_FUSED_ATTENTION_T)} at this '
           'head dim, and the long-sequence attention kernel (K5) takes head '
-          'dims that are multiples of 8 only')
+          f'dims of at most {flash.MAX_HEAD_DIM}')
     normed = basic.layer_norm(params['layer_norm'], inputs, dtype=dtype,
                               impl=impl)
     x = inputs + attention_lib.multi_head_attention(

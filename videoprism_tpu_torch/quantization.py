@@ -128,6 +128,8 @@ def dequantize(params: Params, dtype: torch.dtype = torch.bfloat16
   (``fused``) is dropped: the float path builds its own."""
 
   def visit(key, sub):
+    if key == 'ff_layer' and 'fused' in sub:
+      return _walk({k: v for k, v in sub.items() if k != 'fused'}, visit)
     if _is_attention(key, sub):
       new = {k: v for k, v in sub.items() if k != 'fused'}
       for name in (*_QKV, 'post'):
