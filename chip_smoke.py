@@ -8,13 +8,22 @@ result):
   2. build        nvcc builds videoprism_tpu_torch/csrc for sm_90a, one
                   process per source, all at once; build time, each
                   kernel's registers, shared memory and spills (none
-                  allowed in K5's and K7's kernels up to H = 96), and the
+                  allowed in K5's and K7's kernels up to H = 96, nor in
+                  the int8 GEMM), and the
                   longest sequence K1's attention core takes per head dim
                   (it streams K and V: no limit below the route's 1024);
      host         a K6 call's host time by part (use_kernel,
                   check_tensors, empty_like, launch, the whole call), 1000
-                  calls each without a synchronize (``--host``: this phase
-                  alone, which runs on an older tree too);
+                  calls each without a synchronize; a K11 call's at the
+                  text tower's [2, 65, 768] (the checks, the scratch
+                  allocations, the launch and the C call alone; one
+                  tensor-map encode and one cudaFuncSetAttribute where the
+                  library has the probe); the device kernels one K11 call
+                  (the paths' three shapes and (2, 2)), one K12b and one
+                  K12a call (8192 rows) and one K10 and one K9 call (the
+                  encoder's B=2 shapes) launch, by the profiler, with the
+                  idle time between them (``--host``: this phase alone,
+                  which runs on an older tree too);
      gemm         the wgmma + TMA GEMM of K1, K2, K8a and K8b alone at the
                   base encoder's four products (QKV, output projection,
                   W1, W2) with their epilogues, at B = 8 and B = 1 clips
@@ -46,7 +55,14 @@ result):
                   call's (K6: F.layer_norm, by events and by the
                   profiler; int8 kernels: torch._int_mm over their int8
                   products; K7: SDPA's uncapped forward + backward, a
-                  yardstick);
+                  yardstick); the int8 blocks torch.equal to their
+                  composition from the primitives in separate launches
+                  (the quantizer, the int8 GEMM with the fp32 chunk sum
+                  through a buffer, K1's core): K11 at the paths' three
+                  shapes and (2, 2), K12b and K12a at 8192 rows and at
+                  giant's width, K10 and K9 over two chunks, with the
+                  device kernels of one call counted by the profiler (K11
+                  6, K12a and K12b 1);
   4. gate         layers at T = 1024 run through K1's attention core on
                   the route the reference's chunk rule picks (the base
                   width: K8a over 4 head groups; giant's width, H = 88:
@@ -154,6 +170,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -357,21 +374,44 @@ def cuda_ms(fn, *, warmup: int, iters: int) -> float:
   return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, *, iters: int) -> float:
-  """Device time per call of ``fn()`` in ms: the summed durations of the
-  kernels it launches, by torch.profiler, over ``iters`` calls after one
-  warm-up.  Unlike :func:`cuda_ms` it leaves out the host's time between
-  launches, which bounds short kernels called from Python."""
-  fn()
-  torch.cuda.synchronize()
+def kernel_records(fn) -> list:
+  """The device kernels ``fn()`` launches, by torch.profiler, in launch
+  order.  The session opens with a warm-up step (eight fills of a marker
+  tensor and one ``fn()``) whose records the profiler drops: a session's
+  first kernel records can go missing, the more so after many sessions in
+  one process, and the warm-up step takes that loss.  The steps' own
+  device-side ranges (``ProfilerStep#``) are not kernels and are left
+  out."""
+  marker = torch.empty(1, device='cuda')
   activities = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
-  with torch.profiler.profile(activities=activities) as prof:
+  schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+  with torch.profiler.profile(activities=activities,
+                              schedule=schedule) as prof:
+    for _ in range(8):
+      marker.fill_(0.0)
+    fn()
+    torch.cuda.synchronize()
+    prof.step()
+    fn()
+    torch.cuda.synchronize()
+    prof.step()
+  return sorted((e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not getattr(e, 'is_user_annotation', False)
+                 and not e.name.startswith('ProfilerStep')),
+                key=lambda e: e.time_range.start)
+
+
+def device_ms(fn, *, iters: int) -> float:
+  """Device time per call of ``fn()`` in ms: the summed durations of the
+  kernels it launches over ``iters`` calls (:func:`kernel_records`).
+  Unlike :func:`cuda_ms` it leaves out the host's time between launches,
+  which bounds short kernels called from Python."""
+  def calls():
     for _ in range(iters):
       fn()
-    torch.cuda.synchronize()
-  total_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
+  total_us = sum(e.time_range.elapsed_us() for e in kernel_records(calls))
   check(total_us > 0, 'the profiler saw no device time')
   return total_us / 1000.0 / iters
 
@@ -428,15 +468,17 @@ def phase_build() -> None:
     if m and kernel:
       spills = (f'stack frame {m.group(1)} B, spills {m.group(2)}/'
                 f'{m.group(3)} B')
-      if kernel.startswith(FLASH_KERNELS) and ht <= 6 and (
-          int(m.group(2)) or int(m.group(3))):
+      if ((kernel.startswith(FLASH_KERNELS) and ht <= 6)
+          or kernel.startswith('gemm_i8_kernel')) and (
+              int(m.group(2)) or int(m.group(3))):
         spilled.append(kernel)
     m = re.search(r'Used (\d+) registers.*?(?:(\d+) bytes smem)?$', line)
     if m and kernel:
       print(f'[build] {kernel}: {m.group(1)} registers, static smem '
             f'{m.group(2) or 0} B, {spills}')
       kernel = None
-  check(not spilled, f'K5 / K7 spill registers at H <= 96: {spilled}')
+  check(not spilled, 'K5 / K7 (at H <= 96) or the int8 GEMM (beside its '
+        f'in-flight products) spill registers: {spilled}')
   for h in (64, 88):
     cap = _lib.max_attention_t(h)
     check(cap >= transformer_lib.MAX_FUSED_ATTENTION_T,
@@ -595,18 +637,216 @@ def host_breakdown(device) -> None:
         'launch: the C call alone': lambda: c_fn(*ptrs, rows, d, 0, 1e-6,
                                                  raw_stream(0)),
     })
-  us = {}
-  for name, fn in parts.items():
-    for _ in range(50):
-      fn()
-    torch.cuda.synchronize()
-    start = time.perf_counter_ns()
-    for _ in range(1000):
-      fn()
-    us[name] = (time.perf_counter_ns() - start) / 1000 / 1000.0
-    torch.cuda.synchronize()
+  us = {name: _host_us(fn, calls=1000) for name, fn in parts.items()}
   print('[host] K6 [130, 768] host time per call (1000 calls, no '
         'synchronize): ' + ', '.join(f'{k} {v:.2f} us' for k, v in us.items()))
+  _int8_host_breakdown(device)
+
+
+def _host_us(fn, *, calls: int, batch: int = 1000) -> float:
+  """Host µs per call of ``fn()``: ``calls`` calls in batches of ``batch``
+  after 20 warm-ups, no synchronize inside a batch (a synchronize between
+  batches, not timed, keeps the launch queue from filling)."""
+  for _ in range(20):
+    fn()
+  total = 0
+  for _ in range(0, calls, batch):
+    torch.cuda.synchronize()
+    start = time.perf_counter_ns()
+    for _ in range(batch):
+      fn()
+    total += time.perf_counter_ns() - start
+  torch.cuda.synchronize()
+  return total / calls / 1000.0
+
+
+class _Timed:
+  """Replaces ``owner.attr`` by a shim that adds the time spent in it to
+  ``self.ns`` (and counts the calls) while the context is open."""
+
+  def __init__(self, owner, attr: str):
+    self.owner, self.attr = owner, attr
+    self.ns = self.calls = 0
+
+  def __enter__(self):
+    real = self.real = getattr(self.owner, self.attr)
+
+    def shim(*args, **kwargs):
+      start = time.perf_counter_ns()
+      try:
+        return real(*args, **kwargs)
+      finally:
+        self.ns += time.perf_counter_ns() - start
+        self.calls += 1
+    setattr(self.owner, self.attr, shim)
+    return self
+
+  def __exit__(self, *exc):
+    setattr(self.owner, self.attr, self.real)
+
+
+def _int8_host_breakdown(device) -> None:
+  """K11's host time per call at the text tower's [2, 65, 768] (1, 1) by
+  part, 400 calls in batches of 10 (the launch queue never fills, so the
+  device's time does not show): the whole call; the time inside
+  ``_lib.launch`` and inside the scratch allocations (``torch.empty`` /
+  ``empty_like``, shims that time them, their own cost calibrated on a
+  no-op and taken out); the checks and the rest (the whole call less
+  those); the C call alone (the entry point called with the arguments one
+  call gave it).  Inside the C call, where the library has the probe:
+  one tensor-map encode and one cudaFuncSetAttribute, each timed over
+  1000 calls.  Runs on any tree with ``cases.int8_layer_case``."""
+  case = cases_lib.int8_layer_case(2, 65, 768, 12, 64, 3072, cap=50.0,
+                                   padded=True, causal=True, chunks=(1, 1),
+                                   device=device)
+  call = lambda: case.fn(*case.args, **case.kwargs)
+  calls = dict(calls=400, batch=10)
+  whole = _host_us(call, **calls)
+  noop = _Timed(types.SimpleNamespace(f=lambda: None), 'f')
+  with noop:
+    shim_us = _host_us(noop.owner.f, **calls) - _host_us(lambda: None,
+                                                           **calls)
+  timed = [_Timed(_lib, 'launch'), _Timed(torch, 'empty'),
+           _Timed(torch, 'empty_like')]
+  for t in timed:
+    t.__enter__()
+  try:
+    _host_us(call, **calls)
+  finally:
+    for t in timed:
+      t.__exit__()
+  per_call = lambda t: (t.ns / 1000.0 - t.calls * shim_us) / (
+      400 + 20)
+  launch_us = per_call(timed[0])
+  alloc_us = per_call(timed[1]) + per_call(timed[2])
+  allocs = (timed[1].calls + timed[2].calls) / (400 + 20)
+  recorded = {}
+  real = _lib.launch
+  _lib.launch = lambda name, dev, *args: recorded.update(name=name,
+                                                         args=args)
+  try:
+    call()
+  finally:
+    _lib.launch = real
+  fn = _lib._entry(recorded['name'])[0]
+  raw = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+         for a in recorded['args']]
+  stream = torch.cuda.current_stream(device).cuda_stream
+  c_us = _host_us(lambda: fn(*raw, stream), **calls)
+  line = (f'[host] K11 [2, 65, 768] (1, 1) host time per call (400 calls '
+          f'in batches of 10): whole call {whole:.2f} us, checks and the '
+          f'rest {whole - launch_us - alloc_us:.2f} us, scratch allocations '
+          f'{alloc_us:.2f} us ({allocs:g} tensors), launch {launch_us:.2f} us '
+          f'(the C call alone {c_us:.2f} us); shim {shim_us:.3f} us a call, '
+          'taken out')
+  if 'vp_host_probe' in getattr(_lib, '_SIGNATURES', {}):
+    probe = _lib._entry('vp_host_probe')[0]
+    buf = torch.empty(1 << 20, dtype=torch.int8, device=device)
+    for what, label in ((0, 'tensor-map encode'),
+                        (1, 'cudaFuncSetAttribute')):
+      start = time.perf_counter_ns()
+      check(probe(buf.data_ptr(), what, 1000, stream) == 0,
+            f'host probe {label} failed')
+      line += (f'; one {label} '
+               f'{(time.perf_counter_ns() - start) / 1e6:.3f} us')
+  print(line)
+
+
+def device_parts(case: cases_lib.Case, *, calls: int = 8) -> tuple[list, float,
+                                                                 float]:
+  """The device kernels one call of ``case`` launches, by torch.profiler
+  over ``calls`` calls, one profiler session each (:func:`kernel_records`):
+  ([(kernel name, mean device µs)] in launch order, mean µs from the first
+  kernel's start to the last one's end, mean idle µs inside that span).
+  The count is the largest any session saw (a session can lose a kernel
+  record, never gain one: nothing else launches inside it), and a session
+  that lost one is left out of the means."""
+  run = lambda: case.fn(*case.args, **case.kwargs, impl='kernel')
+  sessions = [kernel_records(run) for _ in range(calls)]
+  n = max(len(k) for k in sessions)
+  sessions = [k for k in sessions if len(k) == n]
+  check(n > 0, f'{case.label}: the profiler saw no device kernel')
+  parts = []
+  for i in range(n):
+    name = re.sub(r'^void |vp::|\(anonymous namespace\)::|\(.*$', '',
+                  sessions[0][i].name)
+    parts.append((name, sum(k[i].time_range.elapsed_us() for k in sessions)
+                  / len(sessions)))
+  span = sum(k[-1].time_range.end - k[0].time_range.start
+             for k in sessions) / len(sessions)
+  return parts, span, span - sum(us for _, us in parts)
+
+
+# The int8 blocks whose device kernels per call [host] lists and [kernels]
+# counts: K11 at the paths' three shapes and (2, 2), K12b and K12a at the
+# auxiliary encoder's rows, and the chains K10 and K9 at the encoder's B=2
+# shapes (their first product quantizes with the standalone quantizer,
+# K11's and K12a's in its prologue: the same product both ways).
+def int8_part_cases(device) -> list[cases_lib.Case]:
+  return [
+      cases_lib.int8_layer_case(32, 256, 768, 12, 64, 3072, cap=50.0,
+                                padded=False, chunks=(2, 1), device=device),
+      cases_lib.int8_layer_case(512, 16, 768, 12, 64, 3072, cap=50.0,
+                                padded=False, chunks=(1, 1), device=device),
+      cases_lib.int8_layer_case(2, 65, 768, 12, 64, 3072, cap=50.0,
+                                padded=True, causal=True, chunks=(1, 1),
+                                device=device),
+      cases_lib.int8_layer_case(512, 16, 768, 12, 64, 3072, cap=50.0,
+                                padded=True, chunks=(2, 2), device=device),
+      *cases_lib.int8_projection_cases(8192, 768, 768, device=device)[::-1],
+      cases_lib.int8_attention_case(32, 256, 768, 12, 64, cap=50.0,
+                                    padded=False, chunks=1, device=device),
+      cases_lib.int8_ffn_case(8192, 768, 3072, activation='gelu',
+                              padded=True, chunks=1, device=device),
+  ]
+
+
+# Device kernels per call of the fused int8 blocks (the profiler's count).
+FUSED_KERNELS = {'int8_layer_block': 6, 'int8_out_projection': 1,
+                 'int8_qkv_projection': 1}
+
+
+def check_int8_fusion(device) -> None:
+  """[kernels]: the int8 blocks whose products quantize their own rows
+  and sum their chunks on chip, bitwise equal to their composition from
+  the primitives in separate launches (``cases.int8_composed``): K11 at the
+  paths' three shapes and (2, 2), K12b and K12a at the auxiliary encoder's
+  8192 rows and at giant's width (D = NH = 1408, the [gate] layer's 1032
+  rows), K10 and K9 over two chunks; and the device kernels one call
+  launches, by the profiler: 6 for K11, 1 for K12a and K12b."""
+  for case in (int8_part_cases(device)
+               + cases_lib.int8_projection_cases(1032, 1408, 1408,
+                                                 device=device)
+               + [cases_lib.int8_attention_case(32, 256, 768, 12, 64,
+                                                cap=50.0, padded=True,
+                                                chunks=2, device=device),
+                  cases_lib.int8_ffn_case(8192, 768, 3072, activation='gelu',
+                                          padded=True, chunks=2,
+                                          device=device)]):
+    fused = cases_lib._joined(case.fn(*case.args, **case.kwargs))
+    composed = cases_lib._joined(cases_lib.int8_composed(case))
+    same = torch.equal(fused, composed)
+    kernels = len(device_parts(case)[0])
+    want = FUSED_KERNELS.get(case.kernel)
+    print(f'[kernels] {case.kernel} {case.label}: '
+          f'{"bitwise equal" if same else "DIFFERS"} to its composition from '
+          f'the primitives (max |diff| {(fused - composed).abs().max():.3g}); '
+          f'{kernels} device kernels per call'
+          + ('' if want is None else f' (want {want})'))
+    check(same, f'{case.kernel} {case.label} differs from its composition')
+    check(want is None or kernels == want,
+          f'{case.kernel} {case.label}: {kernels} device kernels per call, '
+          f'want {want}')
+
+
+def print_device_parts(device) -> None:
+  """[host]: each int8 part case's device kernels per call."""
+  for case in int8_part_cases(device):
+    parts, span, idle = device_parts(case)
+    print(f'[host] {case.kernel} {case.label}: {len(parts)} device kernels '
+          f'per call, {span:.2f} us first start to last end, idle '
+          f'{idle:.2f} us inside it; ' + ', '.join(
+              f'{name} {us:.2f}' for name, us in parts))
 
 
 def _library_layer_norm(case):
@@ -693,6 +933,7 @@ def phase_kernels(device) -> dict[tuple[str, str | None], dict]:
     rec['max_abs_err'] = max(rec['max_abs_err'], r['max_abs_err'])
   _check_weight_helper(device)
   _check_bwd_statistics(device)
+  check_int8_fusion(device)
   # Times at the paths' shapes for two requests; the JSON record takes
   # each kernel's first shape (K1: the spatial stack's).
   timed = [
@@ -1769,6 +2010,7 @@ def main() -> int:
   device = torch.device('cuda', 0)
   phase_build()
   host_breakdown(device)
+  print_device_parts(device)
   if sys.argv[1:] == ['--host']:
     return 0
   phase_gemm(device)

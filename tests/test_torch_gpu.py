@@ -483,6 +483,21 @@ def _int8_kernels_and_dispatch(device):
       *cases_lib.int8_path_cases(device),
       *cases_lib.int8_giant_cases(device),
   ])
+  # The products that quantize their own rows (K12b at ragged rows and
+  # giant's width, K11 at (2, 2) and T = 65) hold their twins and are the
+  # bits of their composition from the primitives in separate launches.
+  fused = [
+      *cases_lib.int8_projection_cases(300, 1408, 1408, device=device),
+      cases_lib.int8_layer_case(2, 65, 256, 4, 64, 512, cap=50.0, padded=True,
+                                causal=True, chunks=(2, 2), device=device),
+      cases_lib.int8_layer_case(2, 65, 144, 3, 48, 288, cap=0.0, padded=True,
+                                causal=True, chunks=(3, 2), device=device),
+  ]
+  _check_all(fused)
+  for case in fused:
+    got = cases_lib._joined(case.fn(*case.args, **case.kwargs))
+    assert torch.equal(got, cases_lib._joined(
+        cases_lib.int8_composed(case))), case.label
 
   _lib.reset_launches()
   ffn.fn(*ffn.args, **ffn.kwargs)

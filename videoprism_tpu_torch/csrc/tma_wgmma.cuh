@@ -56,6 +56,21 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       : "memory");
 }
 
+// The same from a 3-D tensor map at (inner, mid, outer).
+__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                          int inner, int mid, int outer) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(inner), "r"(mid), "r"(outer)
+      : "memory");
+}
+// Makes this thread's shared-memory stores visible to the async proxy
+// (wgmma's and TMA's reads), before a barrier that orders them.
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
 // address, leading and stride byte offsets (16-byte units).
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
@@ -117,6 +132,29 @@ bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, in
                              static_cast<cuuint32_t>(box_outer)};
   const cuuint32_t elem[2] = {1, 1};
   return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 3-D [outer, mid, inner] tensor with byte strides mid_stride and
+// outer_stride, read in boxes of [box_outer, 1, box_inner] with 128-byte
+// swizzle (the box lands in shared memory as a 2-D [box_outer, box_inner]
+// box does); out-of-bounds reads are zeros, so a box that runs past `inner`
+// reads zeros there even where the next `mid` slice follows in memory.
+bool tensor_map3(CUtensorMap* map, CUtensorMapDataType type, const void* base, int inner,
+                 int mid, int outer, long mid_stride, long outer_stride, int box_inner,
+                 int box_outer) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(mid),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(mid_stride),
+                                 static_cast<cuuint64_t>(outer_stride)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_inner), 1,
+                             static_cast<cuuint32_t>(box_outer)};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, type, 3, const_cast<void*>(base), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -64,11 +64,14 @@ _SIGNATURES = {
     'vp_capped_weight': 'ppp' 'i' 'f' 'p',
     'vp_int8_ffn_block': 'p' * 17 + 'iiiii' 'f' 'p',
     'vp_int8_attention_block': 'p' * 18 + 'i' * 8 + 'fff' 'p',
-    'vp_int8_layer_block': 'p' * 31 + 'i' * 11 + 'fff' 'p',
-    'vp_int8_qkv_projection': 'p' * 9 + 'iii' 'ff' 'p',
-    'vp_int8_out_projection': 'p' * 8 + 'iii' 'p',
+    'vp_int8_layer_block': 'p' * 21 + 'i' * 11 + 'fff' 'p',
+    'vp_int8_qkv_projection': 'p' * 7 + 'iii' 'ff' 'p',
+    'vp_int8_out_projection': 'p' * 6 + 'iii' 'p',
     'vp_gemm_bf16': 'pppppp' 'iiiiii' 'f' 'i' 'p',
-    'vp_gemm_i8': 'p' * 8 + 'iiiii' 'f' 'i' 'p',
+    'vp_gemm_i8': 'p' * 10 + 'iiiii' 'f' 'i' 'p',
+    'vp_quant_rows': 'p' * 5 + 'iiii' 'f' 'p',
+    'vp_capped_attention': 'ppp' + 'i' * 6 + 'f' 'p',
+    'vp_host_probe': 'p' 'ii' 'p',
 }
 _CTYPES = {'p': ctypes.c_void_p, 'i': ctypes.c_int, 'f': ctypes.c_float}
 
@@ -206,6 +209,8 @@ def library() -> ctypes.CDLL:
     fn = getattr(lib, name)
     fn.argtypes = [_CTYPES[c] for c in codes]
     fn.restype = ctypes.c_int
+  lib.vp_int8_layer_scratch.argtypes = [ctypes.c_int] * 5
+  lib.vp_int8_layer_scratch.restype = ctypes.c_size_t
   lib.vp_attention_max_t.argtypes = [ctypes.c_int]
   lib.vp_attention_max_t.restype = ctypes.c_int
   lib.vp_error_string.argtypes = [ctypes.c_int]

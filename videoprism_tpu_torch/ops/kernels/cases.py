@@ -643,6 +643,89 @@ def flash_backward_bound(b: int, n: int, t: int, s: int, h: int, *,
                                      else 'operations')
 
 
+def _composed_last(a, chunks, w, ws, bias, pads, resid, *, summed):
+  """The last product of an int8 block from the primitives in separate
+  launches: ``a`` [rows, K] quantized per chunk (``i8.quantize_rows``),
+  then ``i8.gemm_i8`` per chunk with the residual epilogue, the chunks'
+  fp32 sum through a buffer (``summed``, K11 and K12b) or chained with a
+  cast after each (K9, K10)."""
+  rows, k = a.shape
+  q, s = i8.quantize_rows(a, chunks=chunks)
+  kc = k // chunks
+  acc = (torch.empty((rows, w.shape[0]), dtype=torch.float32,
+                     device=a.device) if summed and chunks > 1 else None)
+  out = resid
+  for c in range(chunks):
+    cols = slice(c * kc, (c + 1) * kc)
+    last = c == chunks - 1
+    kw = dict(a_scale=s[:, c].contiguous(), b_scale=ws, epilogue='residual')
+    a_c, w_c = q[:, cols].contiguous(), w[:, cols].contiguous()
+    if summed and not last:
+      i8.gemm_i8(a_c, w_c, acc_in=acc if c else None, acc_out=acc, **kw)
+    elif summed:
+      out = i8.gemm_i8(a_c, w_c, acc_in=acc if c else None, bias=bias,
+                       pads=pads, residual=resid, **kw)
+    else:
+      out = i8.gemm_i8(a_c, w_c, bias=bias if c == 0 else None, pads=pads,
+                       residual=out, **kw)
+  return out
+
+
+def int8_composed(case: Case):
+  """An int8 case's output (K9-K12b) composed from the primitives in
+  separate launches on the card: the quantizer (with the LN in front), the
+  s8 GEMM with each block's epilogue, K1's attention core, the quantizer per
+  chunk and the last product (``_composed_last``).  The blocks quantize in
+  their products' prologues and sum their chunks on chip, in the same
+  operations in the same order: their outputs are these bits."""
+  a, kw = case.args, case.kwargs
+  km = kw['kmajor']
+  eps = kw.get('epsilon', 1e-6)
+  if case.kernel == 'int8_out_projection':
+    ctx, resid, _, so, bo = a
+    return _composed_last(ctx, 1, km['wo'], so, bo, None, resid, summed=True)
+
+  def qkv_of(x2, ln_s, ln_b, nh):
+    h8, hs = i8.quantize_rows(x2, ln_scale=ln_s, ln_bias=ln_b, epsilon=eps)
+    return i8.gemm_i8(h8, km['wqkv'], epilogue='qkv',
+                      a_scale=hs.reshape(-1), b_scale=km['sqkv'],
+                      bias=km['bqkv'], col_scale=kw.get('query_scale', 1.0),
+                      scaled_cols=nh)
+
+  def hidden(x2, pads, ln_s, ln_b, s1, b1):
+    h8, hs = i8.quantize_rows(x2, ln_scale=ln_s, ln_bias=ln_b, epsilon=eps)
+    return i8.gemm_i8(h8, km['w1'], epilogue='act_keep',
+                      a_scale=hs.reshape(-1), b_scale=s1, bias=b1, pads=pads,
+                      activation=kw.get('activation', 'gelu'))
+
+  if case.kernel == 'int8_qkv_projection':
+    nh = km['sqkv'].shape[0] // 3
+    qkv = qkv_of(a[0], a[1], a[2], nh)
+    return qkv[:, :nh], qkv[:, nh:2 * nh], qkv[:, 2 * nh:]
+  if case.kernel == 'int8_ffn_block_chunked':
+    x, pads = a[0], a[1]
+    act = hidden(x, pads, a[2], a[3], a[5], a[6])
+    return _composed_last(act, kw['chunks'], km['w2'], a[8], a[9], pads, x,
+                          summed=False)
+  x = a[0]
+  b, t, d = x.shape
+  heads, hp = kw['num_heads'], tb.padded_head_dim(kw['dim_per_head'])
+  x2 = x.reshape(b * t, d)
+  qkv = qkv_of(x2, a[2 + (case.kernel == 'int8_layer_block')],
+               a[3 + (case.kernel == 'int8_layer_block')], heads * hp)
+  ctx = i8.capped_core(qkv, a[1], batch=b, num_heads=heads, head_dim=hp,
+                       logit_cap=kw['logit_cap'])
+  if case.kernel == 'int8_attention_block_chunked':
+    return _composed_last(ctx, kw['chunks'], km['wo'], a[14], a[15], None,
+                          x2, summed=False).reshape(x.shape)
+  pads = a[2].reshape(b * t, 1)
+  x1 = _composed_last(ctx, kw['head_chunks'], km['wo'], a[15], a[16], None,
+                      x2, summed=True)
+  act = hidden(x1, pads, a[17], a[18], a[20], a[21])
+  return _composed_last(act, kw['ffn_chunks'], km['w2'], a[23], a[24], pads,
+                        x1, summed=True).reshape(x.shape)
+
+
 def _joined(out) -> torch.Tensor:
   """A kernel's output in fp32; K12a's q, k, v and K7's (ctx,) dq, dk, dv
   flattened end to end."""

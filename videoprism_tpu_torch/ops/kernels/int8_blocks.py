@@ -34,16 +34,29 @@ GELU is the exact erf form (the TPU's bf16 kernels use a polynomial).  The
 kernels take bf16 activations and raise on fp32 CUDA tensors; fp32 on the
 card runs with ``impl='reference'``.
 
+On the card K11's, K12a's and K12b's products quantize their own
+activation rows (the LN'd x, or ctx per head group) in a prologue into
+shared memory, and a product over several K-chunks sums them in fp32 on
+chip: K12a and K12b are one launch each, K11 six at any chunk counts
+(q|k|v, K1's core, Wo, W1, the quantizer of the hidden activation, W2).
+Those rows are at most 2048 codes (16 k-tiles of 128) in chunks of at most
+1536, which every model's D and N*H are.  The chains K9 and K10 quantize
+with the standalone quantizer and read the codes by TMA.
+
 The kernels read their int8 weights K-major (the s8 ``wgmma`` takes no
 transposed operand): q|k|v as one [3*N*H', D] matrix, so that K10, K11
 and K12a make one q|k|v product, Wo as [D, N*H'], W1 as [F, D] and W2 as
 [D, F], each head zero-padded to H' (a multiple of 8).
 ``io.checkpoints.prepare_for_kernels`` writes them once at load (the
 ``int8_*_kmajor`` helpers below build the same from [K, N] weights); the
-wrappers take them as ``kmajor``.  :func:`gemm_i8` runs the GEMM alone.
+wrappers take them as ``kmajor``.  :func:`gemm_i8`, :func:`quantize_rows`
+and :func:`capped_core` run the primitives alone (measurement, and the
+blocks composed from them in ``cases.int8_composed``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -59,8 +72,14 @@ from videoprism_tpu_torch.ops.kernels.transformer_block import (
     padded_head_dim,
 )
 
-_INT8 = ('w1', 'w2', 'wq', 'wk', 'wv', 'wo')
-_FP32 = ('mask', 's1', 's2', 'sq', 'sk', 'sv', 'so')
+_INT8 = ('w1', 'w2', 'wq', 'wk', 'wv', 'wo', 'wqkv')
+_FP32 = ('mask', 's1', 's2', 'sq', 'sk', 'sv', 'so', 'sqkv')
+# The widest row (in int8 codes, over all its K-chunks) that a quantizing
+# prologue holds: 16 k-tiles of 128 in shared memory beside the B ring; and
+# the widest chunk a warp quantizes from its registers (six 16-byte chunks
+# a lane).
+PROLOGUE_MAX_K = 2048
+PROLOGUE_MAX_CHUNK = 1536
 
 
 def quant_rows(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -219,15 +238,32 @@ def _qkv_views(kmajor, nh):
 # ---------------------------------------------------------------------------
 
 
+# The checks below run on every launch: each builds its message only when
+# it fails.
+
+
 def _check_multiple(**dims: int) -> None:
   for name, value in dims.items():
-    _lib.check(value > 0 and value % 16 == 0,
-               f'{name}={value} must be a positive multiple of 16 (int8 rows '
-               'of 16 bytes)')
+    if value <= 0 or value % 16:
+      raise ValueError(f'{name}={value} must be a positive multiple of 16 '
+                       '(int8 rows of 16 bytes)')
 
 
 def _check_shapes(cond: bool, what: str) -> None:
-  _lib.check(cond, f'{what} shapes do not match x')
+  if not cond:
+    raise ValueError(f'{what} shapes do not match x')
+
+
+def _check_prologue(chunks: int = 1, **dims: int) -> None:
+  """The rows a product quantizes in its prologue (``chunks`` chunks of
+  each width in ``dims``) fit its shared memory."""
+  for name, value in dims.items():
+    if (value > PROLOGUE_MAX_CHUNK
+        or chunks * -(-value // 128) * 128 > PROLOGUE_MAX_K):
+      raise ValueError(
+          f'{name}={value} in {chunks} chunk(s): the kernels quantize rows '
+          f'of at most {PROLOGUE_MAX_K} int8 codes (16 k-tiles of 128), '
+          f'chunks of at most {PROLOGUE_MAX_CHUNK}')
 
 
 def int8_ffn_block_chunked(
@@ -276,12 +312,12 @@ def int8_ffn_block_chunked(
                 and s2.shape == (d,) and b2.shape == (d,), 'FFN operand')
   _check_multiple(D=d, F=f, F_chunk=f // chunks)
   dev = x.device
-  i8 = lambda *s: torch.empty(s, dtype=torch.int8, device=dev)
-  f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
   out = torch.empty_like(x)
   _lib.launch('vp_int8_ffn_block', dev, x, paddings, ln_scale, ln_bias, w1, s1,
-              b1, w2, s2, b2, i8(rows, d), f32(rows), f32(rows, f),
-              i8(rows, f), f32(rows, chunks),
+              b1, w2, s2, b2, *_front_scratch(rows, d, dev),
+              torch.empty((rows, f), dtype=torch.float32, device=dev),
+              torch.empty((rows, f), dtype=torch.int8, device=dev),
+              torch.empty((rows, chunks), dtype=torch.float32, device=dev),
               torch.empty_like(x) if chunks > 1 else None, out, rows, d, f,
               chunks, ACTIVATIONS[activation], epsilon)
   _lib.LAUNCHES['int8_ffn_block_chunked'] += 1
@@ -316,13 +352,11 @@ def _check_attention(x, mask, ln_scale, ln_bias, kmajor, so, bo, num_heads,
                      hp, chunks):
   b, t, d = x.shape
   nh = num_heads * hp
-  _lib.check_tensors(x.device, int8=_INT8 + ('wqkv',), fp32=_FP32 + ('sqkv',),
-                     x=x, mask=mask, ln_scale=ln_scale, ln_bias=ln_bias,
-                     wqkv=kmajor['wqkv'], sqkv=kmajor['sqkv'],
-                     bqkv=kmajor['bqkv'], wo=kmajor['wo'], so=so, bo=bo)
-  _lib.check(mask.ndim == 3 and mask.shape[0] in (1, b)
-             and mask.shape[1] in (1, t) and mask.shape[2] == t,
-             f'mask {tuple(mask.shape)} does not fit x {tuple(x.shape)}')
+  _lib.check_tensors(x.device, int8=_INT8, fp32=_FP32, x=x, mask=mask,
+                     ln_scale=ln_scale, ln_bias=ln_bias, wqkv=kmajor['wqkv'],
+                     sqkv=kmajor['sqkv'], bqkv=kmajor['bqkv'],
+                     wo=kmajor['wo'], so=so, bo=bo)
+  _check_mask(mask, x)
   _check_shapes(ln_scale.shape == (d,) and ln_bias.shape == (d,)
                 and kmajor['wqkv'].shape == (3 * nh, d)
                 and kmajor['sqkv'].shape == (3 * nh,)
@@ -330,9 +364,29 @@ def _check_attention(x, mask, ln_scale, ln_bias, kmajor, so, bo, num_heads,
                 and kmajor['wo'].shape == (d, nh) and so.shape == (d,)
                 and bo.shape == (d,), 'attention weight')
   _check_multiple(D=d, NH=nh, head_group=nh // chunks)
-  _lib.check(_lib.attention_fits(t, hp),
-             f'T={t}, H={hp}: the attention core takes head dims of at most '
-             '128')
+  _check_core(t, hp)
+
+
+def _front_scratch(rows: int, d: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
+  """K9's and K10's codes [rows, D] and scales [rows] of the LN'd rows:
+  their first product takes the standalone quantizer and reads the codes
+  by TMA (``csrc/int8_blocks.cu`` ``first_product``)."""
+  return (torch.empty((rows, d), dtype=torch.int8, device=dev),
+          torch.empty(rows, dtype=torch.float32, device=dev))
+
+
+def _check_mask(mask, x):
+  b, t, _ = x.shape
+  if not (mask.ndim == 3 and mask.shape[0] in (1, b)
+          and mask.shape[1] in (1, t) and mask.shape[2] == t):
+    raise ValueError(f'mask {tuple(mask.shape)} does not fit x '
+                     f'{tuple(x.shape)}')
+
+
+def _check_core(t, hp):
+  if not _lib.attention_fits(t, hp):
+    raise ValueError(f'T={t}, H={hp}: the attention core takes head dims of '
+                     'at most 128')
 
 
 def int8_attention_block_chunked(
@@ -382,8 +436,7 @@ def int8_attention_block_chunked(
   _lib.launch(
       'vp_int8_attention_block', dev, x, mask, ln_scale, ln_bias,
       kmajor['wqkv'], kmajor['sqkv'], kmajor['bqkv'], kmajor['wo'], so, bo,
-      torch.empty((rows, d), dtype=torch.int8, device=dev),
-      torch.empty(rows, dtype=torch.float32, device=dev),
+      *_front_scratch(rows, d, dev),
       torch.empty((rows, 3 * nh), dtype=x.dtype, device=dev),
       torch.empty((rows, nh), dtype=x.dtype, device=dev),
       torch.empty((rows, nh), dtype=torch.int8, device=dev),
@@ -442,53 +495,71 @@ def int8_layer_block(
     raise ValueError(f'({head_chunks}, {ffn_chunks}) chunks do not divide '
                      f'{num_heads} heads and F={f}')
   on_card = _lib.use_kernel(impl, x)
-  attn_k, qkv, wo_t, hp = _attention_kmajor(
-      (wq, sq, bq, wk, sk, bk, wv, sv, bv), wo, kmajor, x, num_heads,
-      dim_per_head, on_card)
-  if kmajor is None and on_card:
+  if not on_card or kmajor is None:
+    attn_k, qkv, wo_t, hp = _attention_kmajor(
+        (wq, sq, bq, wk, sk, bk, wv, sv, bv), wo, kmajor, x, num_heads,
+        dim_per_head, on_card)
+    if not on_card:
+      static = dict(num_heads=num_heads, dim_per_head=hp,
+                    logit_cap=float(logit_cap), epsilon=epsilon,
+                    query_scale=float(query_scale))
+      if kmajor is not None:
+        w1, w2 = kmajor['w1'].transpose(-1, -2), kmajor['w2'].transpose(-1, -2)
+      ctx = _reference_ctx(x, mask, ln1_scale, ln1_bias, *qkv, **static)
+      x1 = _sum(_parts(ctx, wo_t, so, head_chunks), bo, x)
+      keep = 1.0 - paddings.float()
+      parts = _reference_hidden_parts(x1, keep, ln2_scale, ln2_bias, w1, s1,
+                                      b1, w2, s2, chunks=ffn_chunks,
+                                      activation=activation, epsilon=epsilon)
+      return _sum(parts, b2, x1, keep)
     _check_shapes(w1.shape == (d, f) and w2.shape == (f, d), 'FFN operand')
     kmajor = dict(attn_k, **int8_ffn_kmajor(w1, w2))
-  if kmajor is not None:
-    w1, w2 = kmajor['w1'].transpose(-1, -2), kmajor['w2'].transpose(-1, -2)
-  static = dict(num_heads=num_heads, dim_per_head=hp,
-                logit_cap=float(logit_cap), epsilon=epsilon,
-                query_scale=float(query_scale))
-  if not on_card:
-    ctx = _reference_ctx(x, mask, ln1_scale, ln1_bias, *qkv, **static)
-    x1 = _sum(_parts(ctx, wo_t, so, head_chunks), bo, x)
-    keep = 1.0 - paddings.float()
-    parts = _reference_hidden_parts(x1, keep, ln2_scale, ln2_bias, w1, s1,
-                                    b1, w2, s2, chunks=ffn_chunks,
-                                    activation=activation, epsilon=epsilon)
-    return _sum(parts, b2, x1, keep)
-  _check_attention(x, mask, ln1_scale, ln1_bias, kmajor, so, bo, num_heads,
-                   hp, head_chunks)
-  w1, w2 = kmajor['w1'], kmajor['w2']
-  _lib.check_tensors(x.device, int8=_INT8, fp32=_FP32, paddings=paddings,
-                     ln2_scale=ln2_scale, ln2_bias=ln2_bias, w1=w1, s1=s1,
-                     b1=b1, w2=w2, s2=s2, b2=b2)
-  _check_shapes(paddings.shape == (b, t, 1) and ln2_scale.shape == (d,)
-                and ln2_bias.shape == (d,) and w1.shape == (f, d)
-                and b1.shape == (f,) and w2.shape == (d, f)
-                and s2.shape == (d,) and b2.shape == (d,), 'FFN operand')
-  _check_multiple(F=f, F_chunk=f // ffn_chunks)
-  rows, dev, nh = b * t, x.device, num_heads * hp
-  i8 = lambda *s: torch.empty(s, dtype=torch.int8, device=dev)
-  f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
-  act = lambda *s: torch.empty(s, dtype=x.dtype, device=dev)
+  # The card: every operand checked in one pass, one scratch buffer (carved
+  # by the C side), six launches.
+  hp = padded_head_dim(dim_per_head)
+  rows, nh = b * t, num_heads * hp
+  wqkv, sqkv, bqkv = kmajor['wqkv'], kmajor['sqkv'], kmajor['bqkv']
+  wo, w1, w2 = kmajor['wo'], kmajor['w1'], kmajor['w2']
+  _lib.check_tensors(
+      x.device, int8=_INT8, fp32=_FP32, x=x, mask=mask, paddings=paddings,
+      ln1_scale=ln1_scale, ln1_bias=ln1_bias, wqkv=wqkv, sqkv=sqkv, bqkv=bqkv,
+      wo=wo, so=so, bo=bo, ln2_scale=ln2_scale, ln2_bias=ln2_bias, w1=w1,
+      s1=s1, b1=b1, w2=w2, s2=s2, b2=b2)
+  _check_mask(mask, x)
+  d1, n3 = (d,), (3 * nh,)
+  _check_shapes(paddings.shape == (b, t, 1) and ln1_scale.shape == d1
+                and ln1_bias.shape == d1 and wqkv.shape == (3 * nh, d)
+                and sqkv.shape == n3 and bqkv.shape == n3
+                and wo.shape == (d, nh) and so.shape == d1 and bo.shape == d1
+                and ln2_scale.shape == d1 and ln2_bias.shape == d1
+                and w1.shape == (f, d) and b1.shape == (f,)
+                and w2.shape == (d, f) and s2.shape == d1 and b2.shape == d1,
+                'layer operand')
+  _check_multiple(D=d, NH=nh, head_group=nh // head_chunks, F=f,
+                  F_chunk=f // ffn_chunks)
+  _check_prologue(D=d)
+  _check_prologue(head_chunks, head_group=nh // head_chunks)
+  _check_core(t, hp)
+  dev = x.device
   out = torch.empty_like(x)
   _lib.launch(
       'vp_int8_layer_block', dev, x, mask, paddings, ln1_scale, ln1_bias,
-      kmajor['wqkv'], kmajor['sqkv'], kmajor['bqkv'], kmajor['wo'], so, bo,
-      ln2_scale, ln2_bias, w1, s1, b1, w2, s2, b2,
-      i8(rows, d), f32(rows), act(rows, 3 * nh), act(rows, nh), i8(rows, nh),
-      f32(rows, head_chunks), f32(rows, d), act(rows, d), f32(rows, f),
-      i8(rows, f), f32(rows, ffn_chunks), out,
+      wqkv, sqkv, bqkv, wo, so, bo, ln2_scale, ln2_bias, w1, s1, b1, w2, s2,
+      b2, torch.empty(_layer_scratch_bytes(rows, d, nh, f, ffn_chunks),
+                      dtype=torch.uint8, device=dev), out,
       b, t, d, num_heads, hp, f, mask.shape[0], mask.shape[1],
       head_chunks, ffn_chunks, ACTIVATIONS[activation], float(logit_cap),
       epsilon, float(query_scale))
   _lib.LAUNCHES['int8_layer_block'] += 1
   return out
+
+
+@functools.lru_cache(maxsize=256)
+def _layer_scratch_bytes(rows: int, d: int, nh: int, f: int,
+                         ffn_chunks: int) -> int:
+  """The bytes of K11's one scratch buffer (``csrc/int8_blocks.cu``
+  ``layer_scratch``)."""
+  return _lib.library().vp_int8_layer_scratch(rows, d, nh, f, ffn_chunks)
 
 
 def int8_qkv_projection(
@@ -529,12 +600,11 @@ def int8_qkv_projection(
                 and wqkv.shape == (3 * nh, d) and sqkv.shape == (3 * nh,)
                 and bqkv.shape == (3 * nh,), 'projection weight')
   _check_multiple(D=d, NH=nh)
+  _check_prologue(D=d)
   dev = x.device
   qkv = torch.empty((rows, 3 * nh), dtype=x.dtype, device=dev)
   _lib.launch('vp_int8_qkv_projection', dev, x, ln_scale, ln_bias, wqkv, sqkv,
-              bqkv, torch.empty((rows, d), dtype=torch.int8, device=dev),
-              torch.empty(rows, dtype=torch.float32, device=dev), qkv,
-              rows, d, nh, epsilon, float(query_scale))
+              bqkv, qkv, rows, d, nh, epsilon, float(query_scale))
   _lib.LAUNCHES['int8_qkv_projection'] += 1
   return qkv[:, :nh], qkv[:, nh:2 * nh], qkv[:, 2 * nh:]
 
@@ -550,7 +620,8 @@ def int8_out_projection(
     impl: str = 'auto',
 ) -> torch.Tensor:
   """K12b: W8A8 output projection + bias + residual -> [rows, D] in
-  resid's dtype."""
+  resid's dtype (on the card one launch: ctx quantized in the product's
+  prologue)."""
   check_partial_out(partial_out)
   on_card = _lib.use_kernel(impl, ctx)
   if kmajor is not None:
@@ -569,12 +640,10 @@ def int8_out_projection(
                 and so.shape == (d,) and bo.shape == (d,),
                 'out-projection operand')
   _check_multiple(D=d, NH=nh)
-  dev = ctx.device
+  _check_prologue(NH=nh)
   out = torch.empty_like(resid)
-  _lib.launch('vp_int8_out_projection', dev, ctx, resid, wo, so, bo,
-              torch.empty((rows, nh), dtype=torch.int8, device=dev),
-              torch.empty(rows, dtype=torch.float32, device=dev), out,
-              rows, nh, d)
+  _lib.launch('vp_int8_out_projection', ctx.device, ctx, resid, wo, so, bo,
+              out, rows, nh, d)
   _lib.LAUNCHES['int8_out_projection'] += 1
   return out
 
@@ -631,39 +700,93 @@ def gemm_i8(a: torch.Tensor, b: torch.Tensor, *, epilogue: str = 'int32',
             bias: torch.Tensor | None = None,
             pads: torch.Tensor | None = None,
             residual: torch.Tensor | None = None,
+            acc_in: torch.Tensor | None = None,
+            acc_out: torch.Tensor | None = None,
             activation: str | None = None, col_scale: float = 1.0,
-            scaled_cols: int = 0) -> torch.Tensor:
-  """The product stage of K9-K12b alone, for measurement: ``epilogue(a
-  int8 [M, K] @ b int8 [N, K]^T)`` -> [M, N] through the hand-written s8
-  wgmma GEMM (``csrc/int8_blocks.cu``): 'int32' the exact sums (int32),
-  else v = (float(sum) * a_scale[m]) * b_scale[n] and 'qkv': v + bias, x
-  ``col_scale`` on the first ``scaled_cols`` columns (bf16); 'act_keep':
-  act(v + bias) x keep (fp32); 'residual': (v [+ bias]) [x keep] +
-  residual (bf16).  CUDA tensors only: the blocks' twins are its plain
-  versions."""
+            scaled_cols: int = 0) -> torch.Tensor | None:
+  """The product stage of K9-K12b alone, for measurement and for composing
+  the blocks from their primitives: ``epilogue(a int8 [M, K] @ b int8 [N,
+  K]^T)`` -> [M, N] through the hand-written s8 wgmma GEMM
+  (``csrc/int8_blocks.cu``, A's codes by TMA): 'int32' the exact sums
+  (int32), else v = (float(sum) * a_scale[m]) * b_scale[n] and 'qkv': v +
+  bias, x ``col_scale`` on the first ``scaled_cols`` columns (bf16);
+  'act_keep': act(v + bias) x keep (fp32); 'residual': ``acc_in`` + v
+  when given, written to ``acc_out`` (fp32 [M, N]; returns None) when
+  given, else (v [+ bias]) [x keep] [+ residual] (bf16).  CUDA tensors
+  only: the blocks' twins are its plain versions."""
   m, k = a.shape
   n = b.shape[0]
   _lib.check(a.is_cuda, 'gemm_i8 runs on CUDA tensors only')
   operands = dict(a=a, b=b, a_scale=a_scale, b_scale=b_scale, bias=bias,
-                  pads=pads, residual=residual)
-  _lib.check_tensors(a.device, int8=('a', 'b'), fp32=('a_scale', 'b_scale'),
+                  pads=pads, residual=residual, acc_in=acc_in,
+                  acc_out=acc_out)
+  _lib.check_tensors(a.device, int8=('a', 'b'),
+                     fp32=('a_scale', 'b_scale', 'acc_in', 'acc_out'),
                      **{key: t for key, t in operands.items()
                         if t is not None})
-  _lib.check(b.shape[1] == k and k % 16 == 0 and n % 2 == 0,
+  _lib.check(b.shape[1] == k and k % 16 == 0 and n % 8 == 0,
              f'a {tuple(a.shape)} @ b {tuple(b.shape)}^T: K must agree and '
-             'be a multiple of 16, N even')
+             'be a multiple of 16, N of 8')
   _lib.check(epilogue == 'int32' or (a_scale is not None
                                      and b_scale is not None),
              f"epilogue {epilogue!r} needs a_scale and b_scale")
-  _lib.check(epilogue != 'residual' or residual is not None,
-             "epilogue 'residual' needs a residual")
+  _lib.check((acc_in is None and acc_out is None) or epilogue == 'residual',
+             "acc_in and acc_out go with epilogue 'residual'")
+  _lib.check(all(t is None or t.shape == (m, n) for t in (acc_in, acc_out)),
+             f'acc_in and acc_out must be [{m}, {n}]')
   dtype = {'int32': torch.int32, 'act_keep': torch.float32}.get(
       epilogue, torch.bfloat16)
-  out = torch.empty((m, n), dtype=dtype, device=a.device)
+  out = None if acc_out is not None else torch.empty(
+      (m, n), dtype=dtype, device=a.device)
   _lib.launch('vp_gemm_i8', a.device, a, b, a_scale, b_scale, bias, pads,
-              residual, out, m, n, k, GEMM_I8_EPILOGUES[epilogue],
-              ACTIVATIONS.get(activation, 0), col_scale, scaled_cols)
+              residual, acc_in, acc_out, out, m, n, k,
+              GEMM_I8_EPILOGUES[epilogue], ACTIVATIONS.get(activation, 0),
+              col_scale, scaled_cols)
   return out
+
+
+def quantize_rows(x: torch.Tensor, *, chunks: int = 1,
+                  ln_scale: torch.Tensor | None = None,
+                  ln_bias: torch.Tensor | None = None,
+                  epsilon: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+  """The blocks' standalone quantizer alone (``quant_rows_kernel``, or
+  ``quant_rows_f32_kernel`` for fp32 rows), for measurement and for
+  composing the blocks from their primitives: x [rows, chunks * cols]
+  (bf16 or fp32), with the fp32 LN in front when ``ln_scale`` is given ->
+  (codes int8 [rows, chunks * cols], scales fp32 [rows, chunks]).  CUDA
+  tensors only: :func:`quant_rows` is its plain version."""
+  rows, width = x.shape
+  _lib.check(x.is_cuda and width % chunks == 0,
+             f'quantize_rows runs on CUDA tensors, {chunks} chunks dividing '
+             f'{width} columns')
+  fp32 = x.dtype == torch.float32
+  _lib.check_tensors(x.device, fp32=('x',) if fp32 else (), x=x,
+                     **({} if ln_scale is None
+                        else dict(ln_scale=ln_scale, ln_bias=ln_bias)))
+  q = torch.empty((rows, width), dtype=torch.int8, device=x.device)
+  scale = torch.empty((rows, chunks), dtype=torch.float32, device=x.device)
+  _lib.launch('vp_quant_rows', x.device, x, ln_scale, ln_bias, q, scale, rows,
+              width // chunks, chunks, int(fp32), epsilon)
+  return q, scale
+
+
+def capped_core(qkv: torch.Tensor, mask: torch.Tensor, *, batch: int,
+                num_heads: int, head_dim: int,
+                logit_cap: float) -> torch.Tensor:
+  """K1's attention core alone over the fused q|k|v [B*T, 3*N*H] (q
+  already scaled), the additive fp32 mask [B|1, T|1, T] -> ctx [B*T, N*H]:
+  for composing K10 and K11 from their primitives.  CUDA tensors only."""
+  rows = qkv.shape[0]
+  t = rows // batch
+  _lib.check(qkv.is_cuda and qkv.shape[1] == 3 * num_heads * head_dim,
+             'capped_core takes a CUDA q|k|v of 3 * N * H columns')
+  _lib.check_tensors(qkv.device, qkv=qkv, mask=mask)
+  ctx = torch.empty((rows, num_heads * head_dim), dtype=qkv.dtype,
+                    device=qkv.device)
+  _lib.launch('vp_capped_attention', qkv.device, qkv, mask, ctx, batch, t,
+              num_heads, head_dim, mask.shape[0], mask.shape[1],
+              float(logit_cap))
+  return ctx
 
 
 # ---------------------------------------------------------------------------
