@@ -484,9 +484,11 @@ def _int8_kernels_and_dispatch(device):
       *cases_lib.int8_giant_cases(device),
   ])
   # The products that quantize their own rows (K12b at ragged rows and
-  # giant's width, K11 at (2, 2) and T = 65) hold their twins and are the
-  # bits of their composition from the primitives in separate launches.
+  # giant's width, K12a in 128-row blocks at ragged rows, K11 at (2, 2) and
+  # T = 65) hold their twins and are the bits of their composition from the
+  # primitives in separate launches.
   fused = [
+      cases_lib.int8_projection_cases(17000, 256, 128, device=device)[0],
       *cases_lib.int8_projection_cases(300, 1408, 1408, device=device),
       cases_lib.int8_layer_case(2, 65, 256, 4, 64, 512, cap=50.0, padded=True,
                                 causal=True, chunks=(2, 2), device=device),

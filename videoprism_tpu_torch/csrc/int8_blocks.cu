@@ -29,19 +29,23 @@
 //                      sum, so a product summed on chip and one summed
 //                      through memory are the same bits.
 //
-// The GEMM gets A in one of three ways (I8Mode):
-//   kQuantA   the block quantizes its own 64 rows of A from bf16 (with the
-//             LN in front, or per chunk) in a prologue, into shared memory,
-//             and keeps them there while it walks its N tiles;
-//   kTmaA     A's codes by TMA, 128-row tiles, one K-chunk (the chains and
-//             the primitives run alone);
-//   kTmaASum  A's codes by TMA, 64-row tiles, the chunks summed on chip.
+// The GEMM gets A in one of four ways (I8Mode):
+//   kQuantA      the block quantizes its own 64 rows of A from bf16 (with
+//                the LN in front, or per chunk) in a prologue, into shared
+//                memory, and keeps them there while it walks its N tiles;
+//   kQuantAWide  the same for 128 rows (one K-chunk), walked in 128-row
+//                tiles: each B stage feeds twice the rows (K12a, where the
+//                128-row blocks need one N-group);
+//   kTmaA        A's codes by TMA, 128-row tiles, one K-chunk (the chains
+//                and the primitives run alone);
+//   kTmaASum     A's codes by TMA, 64-row tiles, the chunks summed on chip.
 //
 // The blocks (_ffn_int8_chunk_kernel, _attn_int8_chunk_kernel,
 // _layer_int8_kernel, _qkv_int8_kernel, _out_int8_kernel):
-//   q|k|v              K11, K12a: kQuantA kI8Proj, LN1 + quantize in the
-//                      prologue; K10: quant_rows_kernel, then kTmaA; one
-//                      product over the fused [3NH, D] weights -> qkv bf16
+//   q|k|v              K11, K12a: kQuantA (K12a: or kQuantAWide) kI8Proj,
+//                      LN1 + quantize in the prologue; K10:
+//                      quant_rows_kernel, then kTmaA; one product over the
+//                      fused [3NH, D] weights -> qkv bf16
 //   attention          capped_attention_kernel (K1's core) -> ctx bf16
 //   out = ctx @ Wo     K11, K12b: kQuantA kI8Out, ctx quantized per head
 //                      group in the prologue, the groups summed on chip;
@@ -105,12 +109,20 @@
 // descriptors then point at a slab instead of a ring stage.  At K = 768
 // the codes take 48 KB beside a ring of up to eight 16 KB stages; at
 // giant's K = 1408, 88 KB beside five (rows of up to 2048 codes, in chunks
-// of up to 1536 values).  A 128-row block would halve the grid at the
-// auxiliary encoder's 8192 rows and double each block's prologue.  The
-// prologue, which only the block's twelve warps run while its tensor
-// cores wait, is what the fused kernel pays for the round trip it saves:
-// the chains (K9, K10) keep the standalone quantizer, which spreads the
-// rows over every SM (first_product).
+// of up to 1536 values).  The prologue, which only the block's twelve
+// warps run while its tensor cores wait, is what the fused kernel pays for
+// the round trip it saves: the chains (K9, K10) keep the standalone
+// quantizer, which spreads the rows over every SM (first_product).
+// kQuantAWide (K12a): 128 rows a block, walked in 128 x 128 tiles as kTmaA
+// walks them (ping-pong, two m64 products per B stage), so each weight
+// byte out of L2 feeds twice the rows; its codes take 96 KB at K = 768,
+// beside five stages.  It is taken only where the 128-row blocks fill the
+// SMs in one N-group (16384 rows and more at the base width): with two
+// groups (8192 rows) each quantizes the same 128 rows, twice a 64-row
+// block's prologue, which costs more than the halved weight traffic saves
+// (measured on the card; so is the variant whose two warpgroups multiply
+// each B stage together, over a 64-row half each, whose epilogues then
+// leave the tensor cores idle).
 // Design of the standalone quantizer: K6's row kernel (ln_rows.cu).  One
 // warp per (row, chunk); a bf16 row of up to 2048 values is held in
 // registers from one read in 16-byte loads, and the LN statistics, the
@@ -398,7 +410,7 @@ cudaError_t quant(const T* x, int ldx, const bf16* ln_scale, const bf16* ln_bias
 }
 
 enum I8Epilogue : int { kI8Proj = 0, kI8Act = 1, kI8Out = 2, kI8Raw = 3 };
-enum I8Mode : int { kTmaA = 0, kTmaASum = 1, kQuantA = 2 };
+enum I8Mode : int { kTmaA = 0, kTmaASum = 1, kQuantA = 2, kQuantAWide = 3 };
 
 struct I8Epi {
   const float* a_scale;   // TMA modes: row m's scale of chunk c at a_scale[m * as_ld + c]
@@ -409,8 +421,8 @@ struct I8Epi {
   const float* acc_in;    // [M, N] running fp32 sum to add, or null (kTmaA kI8Out)
   float* acc_out;         // [M, N] running fp32 sum to write, or null (kTmaA kI8Out)
   void* out;              // bf16 (kI8Proj, kI8Out), fp32 (kI8Act) or int32 (kI8Raw), pitch ldo
-  // kQuantA: A is quant_rows(x [M, K] bf16, row pitch ldx), per chunk, with
-  // the fp32 LN in front when ln_scale is not null (one chunk).
+  // The quantizing modes: A is quant_rows(x [M, K] bf16, row pitch ldx), per
+  // chunk, with the fp32 LN in front when ln_scale is not null (one chunk).
   const bf16* x;
   const bf16* ln_scale;
   const bf16* ln_bias;
@@ -419,6 +431,7 @@ struct I8Epi {
   int scaled_cols;        // kI8Proj: col_mul applies to columns below this
   float col_mul;          // kI8Proj: the query scale
   int chunks, kc;         // K = chunks * kc, each chunk with its own row scales
+  int wide;               // with x: 128-row blocks where they pay (kQuantAWide)
   int stages, groups;     // set by gemm(): ring depth; the quantizing modes' N-groups
 };
 
@@ -426,16 +439,24 @@ constexpr int BN = 128;                // output tile width
 constexpr int BK = 128;                // depth per stage: one 128-byte row
 constexpr int kThreads = 384;          // producer + 2 consumer warpgroups
 constexpr int kMaxStages = 6;          // the TMA modes' ring (A and B)
-constexpr int kMaxStagesB = 8;         // kQuantA's ring (B only)
-constexpr int kQRows = 64;             // kQuantA: rows per block
-constexpr int kSlab = kQRows * BK;     // bytes of one resident k-tile of codes
+constexpr int kMaxStagesB = 8;         // the quantizing modes' ring (B only)
+constexpr int kMinStagesWide = 3;      // kQuantAWide only where this many stages fit
+constexpr int kWgRows = 64;            // rows of one warpgroup's m64 products
 constexpr int kPrologueChunks = 6;     // kQuantA: 16-byte chunks a lane holds (1536 values a row)
 constexpr int kSmemMax = 232448;       // an H100 block's dynamic shared memory
 
-// Rows of one consumer warpgroup's tile.
-__host__ __device__ constexpr int tile_rows(int mode) { return mode == kTmaA ? 128 : 64; }
+__host__ __device__ constexpr bool quantizes(int mode) {
+  return mode == kQuantA || mode == kQuantAWide;
+}
+// Rows of one consumer warpgroup's tile, and of a quantizing block.
+__host__ __device__ constexpr int tile_rows(int mode) {
+  return mode == kTmaA || mode == kQuantAWide ? 128 : 64;
+}
+__host__ __device__ constexpr int block_rows(int mode) {
+  return mode == kQuantAWide ? 128 : 64;
+}
 __host__ __device__ constexpr int stage_bytes(int mode) {
-  return (mode == kQuantA ? 0 : tile_rows(mode) * BK) + BN * BK;
+  return (quantizes(mode) ? 0 : tile_rows(mode) * BK) + BN * BK;
 }
 // Bytes of one output element in the staging: the bf16 outputs are staged
 // (kI8Proj, kI8Out); kI8Act's fp32 and the int32 sums go out directly
@@ -452,27 +473,29 @@ __host__ __device__ constexpr int out_pitch(int epilogue) {
 
 // Byte offsets in shared memory past the 1 KB of slack that aligns the
 // ring to the swizzle's 1024-byte period: the ring, the quantizing modes'
-// resident codes, a full and an empty barrier per stage, column scales
-// (fp32) and bias (bf16): the TMA modes' per consumer warpgroup for its
-// tile, the quantizing modes' for the block's N-group (group_tiles tiles),
-// staged once; the quantizing modes' row scales, and their LN's scale plus
-// one and bias over the row's ln_cols columns (fp32; none without the LN);
-// each consumer warpgroup's output staging, 64 rows of its tile.
+// resident codes (block_rows x 128 bytes a k-tile), a full and an empty
+// barrier per stage, column scales (fp32) and bias (bf16): the TMA modes'
+// per consumer warpgroup for its tile, the quantizing modes' for the
+// block's N-group (group_tiles tiles), staged once; the quantizing modes'
+// row scales, and their LN's scale plus one and bias over the row's
+// ln_cols columns (fp32; none without the LN); each consumer warpgroup's
+// output staging, 64 rows of its tile.
 struct SmemLayout {
   int codes, bars, cs, bias, row_scales, ln, out, total;
 };
 __host__ __device__ inline SmemLayout smem_layout(int mode, int epilogue, int stages, int chunks,
                                                   int ktc, int group_tiles, int ln_cols) {
-  const int cols = (mode == kQuantA ? group_tiles : 2) * BN;
+  const bool quant = quantizes(mode);
+  const int cols = (quant ? group_tiles : 2) * BN;
   SmemLayout s;
   s.codes = stages * stage_bytes(mode);
-  s.bars = s.codes + (mode == kQuantA ? chunks * ktc * kSlab : 0);
+  s.bars = s.codes + (quant ? chunks * ktc * block_rows(mode) * BK : 0);
   s.cs = s.bars + 2 * stages * 8;
   s.bias = s.cs + cols * 4;
   s.row_scales = s.bias + cols * 2;
-  s.ln = s.row_scales + (mode == kQuantA ? chunks * kQRows * 4 : 0);
+  s.ln = s.row_scales + (quant ? chunks * block_rows(mode) * 4 : 0);
   s.out = s.ln + 2 * ln_cols * 4;
-  s.total = 1024 + s.out + (out_bytes(epilogue) ? 2 * kQRows * out_pitch(epilogue) : 0);
+  s.total = 1024 + s.out + (out_bytes(epilogue) ? 2 * kWgRows * out_pitch(epilogue) : 0);
   return s;
 }
 
@@ -584,11 +607,11 @@ __device__ __forceinline__ void finish2(const I8Epi& p, int row, int col, float 
   *reinterpret_cast<bf162*>(staged) = __floats2bfloat162_rn(v[0], v[1]);
 }
 
-// kQuantA's prologue: the block's 64 rows of A (from row m0) quantized
-// into the resident k-slabs (chunk c's k-tile kt at codes + (c * ktc + kt)
-// * kSlab; 16-byte unit u of row r at r * 128 + (u ^ r % 8) * 16, TMA's
-// 128-byte swizzle of a [64, 128] box), zeros past a chunk's width, the
-// row scales to row_scales[c * 64 + r].  Warp w takes the (row, chunk)
+// The quantizing modes' prologue: the block's R rows of A (from row m0)
+// quantized into the resident k-slabs (chunk c's k-tile kt at codes + (c *
+// ktc + kt) * R * 128; 16-byte unit u of row r at r * 128 + (u ^ r % 8) *
+// 16, TMA's 128-byte swizzle of an [R, 128] box), zeros past a chunk's
+// width, the row scales to row_scales[c * R + r].  Warp w takes the (row, chunk)
 // items w, w + 12, .., each read in 16-byte loads into registers, D rows
 // in flight (three for rows of up to 1024 values, else two, so that the
 // registers hold them): once item i is quantized, item i + 12 D's loads are
@@ -598,7 +621,7 @@ __device__ __forceinline__ void finish2(const I8Epi& p, int row, int col, float 
 // block: read from device memory per item, their loads waited in every
 // item).  Rows past M are left as they are: their products are never
 // written.
-template <int J>
+template <int J, int R>
 __device__ __forceinline__ void quantize_rows(const I8Epi& p, int m0, unsigned char* codes,
                                               float* row_scales, const float* ln_g1,
                                               const float* ln_h) {
@@ -606,7 +629,8 @@ __device__ __forceinline__ void quantize_rows(const I8Epi& p, int m0, unsigned c
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int n8 = p.kc / 8, ktc = (p.kc + BK - 1) / BK;
   const int tail = p.kc % BK;   // a chunk's codes end here in its last k-tile (0: whole)
-  const int items = min(kQRows, p.M - m0) * p.chunks;
+  constexpr int kSlab = R * BK;  // bytes of one resident k-tile of codes
+  const int items = min(R, p.M - m0) * p.chunks;
   auto row_of = [&](int item) {
     return p.x + static_cast<size_t>(m0 + item / p.chunks) * p.ldx +
            static_cast<size_t>(item % p.chunks) * p.kc;
@@ -642,7 +666,7 @@ __device__ __forceinline__ void quantize_rows(const I8Epi& p, int m0, unsigned c
       if (tail && lane < (BK - tail) / 16)
         *reinterpret_cast<uint4*>(row_codes + (ktc - 1) * kSlab +
                                   (((tail / 16 + lane) ^ swz) * 16)) = make_uint4(0, 0, 0, 0);
-      if (lane == 0) row_scales[c * kQRows + local] = s;
+      if (lane == 0) row_scales[c * R + local] = s;
       if (item + W * D < items) load_row<J>(row_of(item + W * D), n8, lane, buf[u]);
     }
   }
@@ -654,8 +678,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                    const __grid_constant__ CUtensorMap map_b,
                    const __grid_constant__ I8Epi p) {
   constexpr int TR = tile_rows(kMode), MH = TR / 64, kStage = stage_bytes(kMode);
+  constexpr int R = block_rows(kMode), kSlab = R * BK;  // the quantizing modes' rows
   constexpr bool kSum = TR == 64;  // 64-row tiles, the chunks summed on chip
-  constexpr bool kQuant = kMode == kQuantA;
+  constexpr bool kQuant = quantizes(kMode);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -669,17 +694,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint64_t* empty = full + S;
   float* stage_cs = reinterpret_cast<float*>(ring + L.cs);           // [2 | per_group][BN]
   uint16_t* stage_bias = reinterpret_cast<uint16_t*>(ring + L.bias);  // the same
-  float* row_scales = reinterpret_cast<float*>(ring + L.row_scales);  // kQuantA [chunks][64]
-  float* ln_g1 = reinterpret_cast<float*>(ring + L.ln);               // kQuantA [ln_cols]
+  float* row_scales = reinterpret_cast<float*>(ring + L.row_scales);  // kQuant [chunks][R]
+  float* ln_g1 = reinterpret_cast<float*>(ring + L.ln);               // kQuant [ln_cols]
   float* ln_h = ln_g1 + ln_cols;
   const int wg = threadIdx.x / 128;
 
-  // The block's tiles: kQuantA's are the N tiles of its group over its 64
-  // rows; the TMA modes' every gridDim.x-th tile of the output from
-  // blockIdx.x (grid <= tiles).
+  // The block's tiles: the quantizing modes' are the N tiles of its group
+  // over its R rows; the TMA modes' every gridDim.x-th tile of the output
+  // from blockIdx.x (grid <= tiles).
   int ntiles, m_first = 0, n_first = 0;
   if constexpr (kQuant) {
-    m_first = blockIdx.x / p.groups * kQRows;
+    m_first = blockIdx.x / p.groups * R;
     n_first = blockIdx.x % p.groups * per_group;
     ntiles = min(per_group, tiles_n - n_first);
   } else {
@@ -754,11 +779,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     it0 = min(S, steps);
     if (threadIdx.x == 0) produce(0, it0);
     const int j = (p.kc / 8 + 31) / 32;  // 16-byte chunks per lane
-    if (j <= 1) quantize_rows<1>(p, m_first, codes, row_scales, ln_g1, ln_h);
-    else if (j <= 2) quantize_rows<2>(p, m_first, codes, row_scales, ln_g1, ln_h);
-    else if (j <= 3) quantize_rows<3>(p, m_first, codes, row_scales, ln_g1, ln_h);
-    else if (j <= 4) quantize_rows<4>(p, m_first, codes, row_scales, ln_g1, ln_h);
-    else quantize_rows<6>(p, m_first, codes, row_scales, ln_g1, ln_h);
+    if (j <= 1) quantize_rows<1, R>(p, m_first, codes, row_scales, ln_g1, ln_h);
+    else if (j <= 2) quantize_rows<2, R>(p, m_first, codes, row_scales, ln_g1, ln_h);
+    else if (j <= 3) quantize_rows<3, R>(p, m_first, codes, row_scales, ln_g1, ln_h);
+    else if (j <= 4) quantize_rows<4, R>(p, m_first, codes, row_scales, ln_g1, ln_h);
+    else quantize_rows<6, R>(p, m_first, codes, row_scales, ln_g1, ln_h);
     fence_proxy_async_shared();
     __syncthreads();
   }
@@ -777,7 +802,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int g = lane / 4, c2 = 2 * (lane % 4);
   constexpr bool raw = kEpi == kI8Raw;
   constexpr int kOB = out_bytes(kEpi), kPitch = out_pitch(kEpi);  // kOB 0: not staged
-  unsigned char* staging = ring + L.out + cw * kQRows * kPitch;  // this warpgroup's
+  unsigned char* staging = ring + L.out + cw * kWgRows * kPitch;  // this warpgroup's
   const bool with_res = kEpi == kI8Out && p.resid && !p.acc_out;
   int acc[MH][64];         // rows 64 * mh + 16 * warp + g (+ 8) of the tile
   float sum[kSum ? 64 : 1];
@@ -788,7 +813,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // copy (rows and columns past the output read as zeros): the first 64
     // before the tile's products, so that the loads overlap them.
     auto fetch_residual = [&](int r0) {
-      for (int idx = threadIdx.x % 128; idx < kQRows * 16; idx += 128) {
+      for (int idx = threadIdx.x % 128; idx < kWgRows * 16; idx += 128) {
         const int r = idx / 16, u = idx % 16, row = r0 + r, col = n0 + 8 * u;
         const bool ok = row < p.M && col < p.N;
         cp_async16(staging + r * kPitch + 16 * u,
@@ -824,7 +849,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int local = 16 * warp + g + 8 * h;
-          if constexpr (kQuant) rs[h] = row_scales[c * kQRows + local];
+          if constexpr (kQuant) rs[h] = row_scales[c * R + local];
           else if (m0 + local < p.M)
             rs[h] = __ldg(p.a_scale + static_cast<size_t>(m0 + local) * p.as_ld + c);
         }
@@ -900,8 +925,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int h = 0; h < 2; ++h) {
         rows[h] = m0 + 64 * mh + 16 * warp + g + 8 * h;
         const bool ok = rows[h] < p.M;
-        rs[h] = !kSum && ok && !raw ? __ldg(p.a_scale + static_cast<size_t>(rows[h]) * p.as_ld)
-                                    : 0.f;
+        if constexpr (kQuant && !kSum)
+          rs[h] = row_scales[64 * mh + 16 * warp + g + 8 * h];
+        else
+          rs[h] = !kSum && ok && !raw ? __ldg(p.a_scale + static_cast<size_t>(rows[h]) * p.as_ld)
+                                      : 0.f;
         keep[h] = ok && p.pads ? 1.f - __bfloat162float(p.pads[rows[h]]) : 1.f;
       }
       if (with_res) {
@@ -944,7 +972,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         warpgroup_sync(3 + cw);  // every pair is staged
         if (kEpi != kI8Out || !p.acc_out) {
           constexpr int kUnits = BN * kOB / 16;  // 16-byte units of a staged row
-          for (int idx = threadIdx.x % 128; idx < kQRows * kUnits; idx += 128) {
+          for (int idx = threadIdx.x % 128; idx < kWgRows * kUnits; idx += 128) {
             const int r = idx / kUnits, u = idx % kUnits;
             const int row = m0 + 64 * mh + r, col = n0 + 16 / kOB * u;
             if (row < p.M && col < p.N)
@@ -984,57 +1012,80 @@ cudaError_t launch_i8(const CUtensorMap& map_a, const CUtensorMap& map_b, const 
   return cudaGetLastError();
 }
 
+// A launch of mode `mode`: its grid, the quantizing modes' N-groups, the
+// ring's depth (as many stages as fit) and the shared memory.  The
+// quantizing modes' grid is the row blocks times as many N-groups as fill
+// the SMs with them, at most one per N tile, none empty; the TMA modes'
+// persistent blocks take every gridDim.x-th tile.
+struct LaunchShape {
+  long grid;
+  int groups, stages, smem;
+};
+LaunchShape launch_shape(int mode, const I8Epi& p, int ktc, int tiles_n) {
+  LaunchShape l{};
+  if (quantizes(mode)) {
+    const long row_blocks = (p.M + block_rows(mode) - 1) / block_rows(mode);
+    const int groups = static_cast<int>(
+        std::max(1L, std::min<long>(tiles_n, sm_count() / row_blocks)));
+    const int per_group = (tiles_n + groups - 1) / groups;
+    l.groups = (tiles_n + per_group - 1) / per_group;
+    l.grid = row_blocks * l.groups;
+  } else {
+    l.groups = 1;
+    const long tiles = static_cast<long>((p.M + tile_rows(mode) - 1) / tile_rows(mode)) * tiles_n;
+    l.grid = std::min<long>(tiles, sm_count());
+  }
+  const int group_tiles = (tiles_n + l.groups - 1) / l.groups;
+  const int ln_cols = quantizes(mode) && p.ln_scale ? p.K : 0;
+  auto bytes = [&](int stages) {
+    return smem_layout(mode, p.epilogue, stages, p.chunks, ktc, group_tiles, ln_cols).total;
+  };
+  for (l.stages = quantizes(mode) ? kMaxStagesB : kMaxStages;
+       l.stages > 2 && bytes(l.stages) > kSmemMax;)
+    --l.stages;
+  l.smem = bytes(l.stages);
+  return l;
+}
+
 // out = epilogue(A [M, K] @ b [N, K]^T (row pitch ldb)), K cut into
 // p.chunks chunks of p.kc.  A is quantized in the kernel from p.x when it
-// is set (kQuantA), else it is the codes a (row pitch lda), read by TMA (kTmaA for
-// one chunk, kTmaASum for more).
+// is set (kQuantA; kQuantAWide where p.wide asks for it, K is one chunk,
+// the 128-row blocks take one N-group and their codes fit beside
+// kMinStagesWide stages: a shape rule), else it is the codes a (row pitch
+// lda), read by TMA (kTmaA for one chunk, kTmaASum for more).
 cudaError_t gemm(I8Epi p, const int8_t* a, int lda, const int8_t* b, int ldb,
                  cudaStream_t stream) {
   const int ktc = (p.kc + BK - 1) / BK;
-  const int mode = p.x ? kQuantA : p.chunks > 1 ? kTmaASum : kTmaA;
+  int mode = p.x ? kQuantA : p.chunks > 1 ? kTmaASum : kTmaA;
   if (p.M <= 0 || p.N <= 0 || p.chunks < 1 || p.kc <= 0 || p.kc % 16 ||
       p.K != p.chunks * p.kc || p.N % 8 || ldb % 16 || ldb < p.K || !aligned16(b) ||
       (p.epilogue != kI8Raw && !aligned16(p.out)) || (p.resid && !aligned16(p.resid)))
     return cudaErrorInvalidValue;
-  if (mode == kQuantA ? p.ldx % 8 || p.ldx < p.K || !aligned16(p.x) ||
-                            row_chunks(p.kc) > kPrologueChunks ||
-                            (p.ln_scale && (p.chunks != 1 || !aligned16(p.ln_scale) ||
-                                            !aligned16(p.ln_bias)))
-                      : lda % 16 || lda < p.K || !aligned16(a))
+  if (p.x ? p.ldx % 8 || p.ldx < p.K || !aligned16(p.x) || row_chunks(p.kc) > kPrologueChunks ||
+                (p.ln_scale &&
+                 (p.chunks != 1 || !aligned16(p.ln_scale) || !aligned16(p.ln_bias)))
+          : lda % 16 || lda < p.K || !aligned16(a))
     return cudaErrorInvalidValue;
   const int tiles_n = (p.N + BN - 1) / BN;
-  long grid;
-  if (mode == kQuantA) {
-    // As many N-groups as fill the SMs with row blocks, at most one per N
-    // tile, none empty.
-    const long row_blocks = (p.M + kQRows - 1) / kQRows;
-    const int groups = static_cast<int>(
-        std::max(1L, std::min<long>(tiles_n, sm_count() / row_blocks)));
-    const int per_group = (tiles_n + groups - 1) / groups;
-    p.groups = (tiles_n + per_group - 1) / per_group;
-    grid = row_blocks * p.groups;
-  } else {
-    p.groups = 1;
-    const long tiles = static_cast<long>((p.M + tile_rows(mode) - 1) / tile_rows(mode)) * tiles_n;
-    grid = std::min<long>(tiles, sm_count());
+  LaunchShape l = launch_shape(mode, p, ktc, tiles_n);
+  if (p.x && p.wide && p.chunks == 1) {
+    const LaunchShape w = launch_shape(kQuantAWide, p, ktc, tiles_n);
+    if (w.groups == 1 && w.stages >= kMinStagesWide && w.smem <= kSmemMax) {
+      mode = kQuantAWide;
+      l = w;
+    }
   }
-  const int group_tiles = (tiles_n + p.groups - 1) / p.groups;
-  const int ln_cols = mode == kQuantA && p.ln_scale ? p.K : 0;
-  for (p.stages = mode == kQuantA ? kMaxStagesB : kMaxStages;
-       p.stages > 2 &&
-       smem_layout(mode, p.epilogue, p.stages, p.chunks, ktc, group_tiles, ln_cols).total >
-           kSmemMax;)
-    --p.stages;
-  const int smem =
-      smem_layout(mode, p.epilogue, p.stages, p.chunks, ktc, group_tiles, ln_cols).total;
-  if (smem > kSmemMax) return cudaErrorInvalidValue;
+  if (l.smem > kSmemMax) return cudaErrorInvalidValue;
+  p.groups = l.groups;
+  p.stages = l.stages;
+  const int smem = l.smem;
   CUtensorMap map_a{}, map_b;
   constexpr auto kU8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
   if (!tensor_map3(&map_b, kU8, b, p.kc, p.chunks, p.N, p.kc, ldb, BK, BN) ||
-      (mode != kQuantA &&
+      (!quantizes(mode) &&
        !tensor_map3(&map_a, kU8, a, p.kc, p.chunks, p.M, p.kc, lda, BK, tile_rows(mode))))
     return cudaErrorInvalidValue;
-  const int g = static_cast<int>(grid);
+  const int g = static_cast<int>(l.grid);
 #define VP_LAUNCH(epi, act, m) return launch_i8<epi, act, m>(map_a, map_b, p, g, smem, stream)
   switch (mode) {
     case kTmaA:
@@ -1062,6 +1113,10 @@ cudaError_t gemm(I8Epi p, const int8_t* a, int lda, const int8_t* b, int ldb,
         case kI8Out: VP_LAUNCH(kI8Out, kActNone, kQuantA);
         default: return cudaErrorInvalidValue;
       }
+    case kQuantAWide:  // K12a's q|k|v only
+      if (p.epilogue == kI8Proj && !p.acc_in && !p.acc_out)
+        VP_LAUNCH(kI8Proj, kActNone, kQuantAWide);
+      return cudaErrorInvalidValue;
   }
   return cudaErrorInvalidValue;
 #undef VP_LAUNCH
@@ -1069,11 +1124,12 @@ cudaError_t gemm(I8Epi p, const int8_t* a, int lda, const int8_t* b, int ldb,
 
 // The first product of a block, its A the LN of x [rows, d] quantized: in
 // the product's prologue (p.x; K11, whose six launches are the point, and
-// K12a's one), or, where the caller gives scratch h8 [rows, d] / hs
-// [rows], by quant_rows_kernel into h8 / hs, read by TMA (the chains K9
-// and K10, which keep their launches): the standalone quantizer spreads the
-// rows over every SM, where a block's prologue quantizes its 64 rows on one
-// SM, again in every N-group, while its tensor cores wait.
+// K12a's one, in 128-row blocks where they pay), or, where the caller
+// gives scratch h8 [rows, d] / hs [rows], by quant_rows_kernel into h8 /
+// hs, read by TMA (the chains K9 and K10, which keep their launches): the
+// standalone quantizer spreads the rows over every SM, where a block's
+// prologue quantizes its 64 rows on one SM, again in every N-group, while
+// its tensor cores wait.
 cudaError_t first_product(I8Epi p, const bf16* x, const bf16* ln_s, const bf16* ln_b, float eps,
                           int8_t* h8, float* hs, const int8_t* w, cudaStream_t st) {
   const int d = p.K;
@@ -1094,12 +1150,14 @@ cudaError_t first_product(I8Epi p, const bf16* x, const bf16* ln_s, const bf16* 
 
 // LN + quantize x [rows, d] (first_product), then q | k | v into qkv [rows,
 // 3 nh] in bf16 by one product over the fused K-major weights wqkv [3 nh,
-// d], q times query_scale (K12a, and the front of K10 and K11).
+// d], q times query_scale (K12a, and the front of K10 and K11).  wide: the
+// prologue's 128-row blocks where they pay (K12a; K11 keeps 64 rows).
 cudaError_t qkv_projection(const bf16* x, const bf16* ln_s, const bf16* ln_b,
                            const int8_t* wqkv, const float* sqkv, const bf16* bqkv, bf16* qkv,
                            int8_t* h8, float* hs, int rows, int d, int nh, float eps,
-                           float query_scale, cudaStream_t st) {
+                           float query_scale, bool wide, cudaStream_t st) {
   I8Epi p = epi(nullptr, 0, sqkv, rows, 3 * nh, d, kI8Proj);
+  p.wide = wide;
   p.bias = bqkv;
   p.out = qkv;
   p.col_mul = query_scale;
@@ -1273,7 +1331,7 @@ int vp_int8_attention_block(const void* x, const void* mask, const void* ln_s, c
   cudaError_t err = vp::qkv_projection(VP_B(x), VP_B(ln_s), VP_B(ln_b), VP_I8(wqkv), VP_F(sqkv),
                                        VP_B(bqkv), qkvp, static_cast<int8_t*>(h8),
                                        static_cast<float*>(hs), rows, d, nh, eps, query_scale,
-                                       st);
+                                       false, st);
   if (err == cudaSuccess)
     err = vp::launch_capped_attention(qkvp, VP_F(mask), ctxp, batch, t, heads, hd, mask_b,
                                       mask_t, cap, st);
@@ -1311,7 +1369,7 @@ int vp_int8_layer_block(const void* x, const void* mask, const void* pads, const
   const vp::LayerScratch s = vp::layer_scratch(scratch, rows, d, nh, f, ffn_chunks);
   cudaError_t err = vp::qkv_projection(VP_B(x), VP_B(ln1_s), VP_B(ln1_b), VP_I8(wqkv),
                                        VP_F(sqkv), VP_B(bqkv), s.qkv, nullptr, nullptr, rows, d,
-                                       nh, eps, query_scale, st);
+                                       nh, eps, query_scale, false, st);
   if (err == cudaSuccess)
     err = vp::launch_capped_attention(s.qkv, VP_F(mask), s.ctx, batch, t, heads, hd, mask_b,
                                       mask_t, cap, st);
@@ -1327,13 +1385,13 @@ int vp_int8_layer_block(const void* x, const void* mask, const void* pads, const
 }
 
 // K12a: x [rows, d] -> q | k | v in the column blocks of qkv [rows, 3 nh],
-// one launch over wqkv [3 nh, d].
+// one launch over wqkv [3 nh, d], in 128-row blocks where they pay.
 int vp_int8_qkv_projection(const void* x, const void* ln_s, const void* ln_b, const void* wqkv,
                            const void* sqkv, const void* bqkv, void* qkv, int rows, int d, int nh,
                            float eps, float query_scale, void* stream) {
   return vp::qkv_projection(VP_B(x), VP_B(ln_s), VP_B(ln_b), VP_I8(wqkv), VP_F(sqkv),
                             VP_B(bqkv), static_cast<bf16*>(qkv), nullptr, nullptr, rows, d, nh,
-                            eps, query_scale, static_cast<cudaStream_t>(stream));
+                            eps, query_scale, true, static_cast<cudaStream_t>(stream));
 }
 
 // K12b: ctx [rows, nh] -> cast(quant_rows(ctx) @ Wo + bo + resid) [rows,
