@@ -10,7 +10,7 @@ failure exits non-zero and prints no result):
                   process per source, all at once; build time, each
                   kernel's registers, shared memory and spills (none
                   allowed in K5's and K7's kernels up to H = 96, nor in
-                  the int8 GEMM), and the
+                  any instantiation of the two GEMMs), and the
                   longest sequence K1's attention core takes per head dim
                   (it streams K and V: no limit below the route's 1024);
      host         a K6 call's host time by part (use_kernel,
@@ -22,22 +22,31 @@ failure exits non-zero and prints no result):
                   library has the probe); the device kernels one K11 call
                   (the paths' three shapes and (2, 2)), one K12b and one
                   K12a call (8192 rows) and one K10 and one K9 call (the
-                  encoder's B=2 shapes) launch, by the profiler, with the
-                  idle time between them (``--host``: the device and build
-                  phases and this one alone, which runs on an older tree
-                  too);
+                  encoder's B=2 shapes), K9 at the giant encoder's width
+                  and K2 / K8b (vc large's and vc giant's rows) launch, by
+                  the profiler, with the idle time between them
+                  (``--host``: the device and build phases and this one
+                  alone, which runs on an older tree too);
      gemm         the wgmma + TMA GEMM of K1, K2, K8a and K8b alone at the
                   base encoder's four products (QKV, output projection,
                   W1, W2) with their epilogues, at B = 8 and B = 1 clips
                   (M = 32768, 4096): its time (CUDA events) and TFLOP/s,
                   its max error against the fp32 product with the same
                   epilogue, and torch.matmul's time on the same operands
-                  (a yardstick the port never calls);
+                  (a yardstick the port never calls); then K8b's chained
+                  output product at vc giant's shapes (4096 x 6144 ->
+                  1408, 4 slices) in one launch, torch.equal to its
+                  slices' residual launches, with both times;
      gemm-i8      the s8 wgmma + TMA GEMM of K9-K12b alone at the int8
                   encoder's products (K-major weights): the int32 mode
                   torch.equal to torch._int_mm, each epilogue against its
                   fp32 formula, TOP/s beside torch._int_mm's (B row-major
-                  and TN) and the bf16 GEMM's on the same shape;
+                  and TN) and the bf16 GEMM's on the same shape; then K9's
+                  W1 quantizing its hidden activation in its epilogue
+                  (8192 x 768 -> 3072, one chunk; 2048 x 1408 -> 6144, two),
+                  its codes and scales torch.equal to the fp32 epilogue
+                  quantized by the standalone quantizer, with the grid and
+                  band size its launch checked and both times;
   3. kernels      every kernel against its plain twin at the shapes of the
                   encoder, CLIP, classifier and int8 paths for two requests
                   (K5 also at giant's H = 88; K9 and K10 also at 2 chunks,
@@ -63,8 +72,12 @@ failure exits non-zero and prints no result):
                   through a buffer, K1's core): K11 at the paths' three
                   shapes and (2, 2), K12b and K12a at 8192 rows and at
                   giant's width, K12a at 32768 rows (128-row blocks), K10
-                  and K9 over two chunks, with the device kernels of one
-                  call counted by the profiler (K11 6, K12a and K12b 1);
+                  and K9 over two chunks (K9 also at giant's width), K2
+                  and K8b at vc large's and vc giant's rows torch.equal to
+                  their composition from K6 and tb.gemm_bf16 launches, with
+                  the device kernels of one call counted by the profiler
+                  (K11 6, K12a and K12b 1, K9 3 / 4 at 1 / 2 chunks, K2 and
+                  K8b 3);
   4. gate         layers at T = 1024 run through K1's attention core on
                   the route the reference's chunk rule picks (the base
                   width: K8a over 4 head groups; giant's width, H = 88:
@@ -155,6 +168,9 @@ The seeded npz files of phases 12 and 13 are written to a temporary
 directory under build/ and removed.  Counts of kernel launches are set to 0
 before each path's phase (5, 7, 9, 10, 12, 13, 14 and 16) and read after
 it.
+``python3 chip_smoke.py --outputs save DIR`` / ``--outputs against DIR``
+saves the fused blocks' outputs at the [kernels] shapes, or holds this
+tree's to saved ones (``compare_outputs``).
 The line before the last is the per-kernel JSON record (K7 twice: computing
 its own row statistics, its record since it was ported, and with
 "variant": "stats from K5", the train step's route); the last line is
@@ -163,6 +179,7 @@ its own row statistics, its record since it was ported, and with
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -461,7 +478,10 @@ def phase_build() -> None:
       template = re.search(r'I((?:Li\d+E)+)(?:Lb([01])E)?', line)
       ints = re.findall(r'Li(\d+)E', template.group(1)) if template else []
       ht = int(ints[0]) if kernel and ints else 0
-      if kernel and ints:
+      if kernel == 'gemm_bf16_kernel':   # <epilogue, activation, pads, bias>
+        args = re.search(r'I((?:L[ib]\d+E)+)E', line).group(1)
+        kernel += '<' + ', '.join(re.findall(r'L[ib](\d+)E', args)) + '>'
+      elif kernel and ints:
         kernel += f'<{", ".join(ints)}' + (
             '' if template.group(2) is None
             else ', capped' if template.group(2) == '1' else ', no cap') + '>'
@@ -474,7 +494,7 @@ def phase_build() -> None:
       spills = (f'stack frame {m.group(1)} B, spills {m.group(2)}/'
                 f'{m.group(3)} B')
       if ((kernel.startswith(FLASH_KERNELS) and ht <= 6)
-          or kernel.startswith('gemm_i8_kernel')) and (
+          or kernel.startswith(('gemm_i8_kernel', 'gemm_bf16_kernel'))) and (
               int(m.group(2)) or int(m.group(3))):
         spilled.append(kernel)
     m = re.search(r'Used (\d+) registers.*?(?:(\d+) bytes smem)?$', line)
@@ -482,8 +502,8 @@ def phase_build() -> None:
       print(f'[build] {kernel}: {m.group(1)} registers, static smem '
             f'{m.group(2) or 0} B, {spills}')
       kernel = None
-  check(not spilled, 'K5 / K7 (at H <= 96) or the int8 GEMM (beside its '
-        f'in-flight products) spill registers: {spilled}')
+  check(not spilled, 'K5 / K7 (at H <= 96) or a GEMM instantiation (beside '
+        f'its in-flight products) spill registers: {spilled}')
   for h in (64, 88):
     cap = _lib.max_attention_t(h)
     check(cap >= transformer_lib.MAX_FUSED_ATTENTION_T,
@@ -539,6 +559,46 @@ def phase_gemm(device) -> None:
             f'ms, {flops / mm_ms / 1e9:.1f} TFLOP/s')
       check(ok, f'GEMM {name} at B={b} disagrees with the fp32 product')
       del a, w, res, got, want
+  _gemm_chain(device, gen)
+
+
+# K8b's chained output product at vc giant's shapes for two clips: [rows,
+# F] @ [F, D] over F-slices.
+CHAIN_PRODUCT = (4096, 6144, 1408, 4)
+
+
+def _gemm_chain(device, gen) -> None:
+  """[gemm]: the chained epilogue alone (K8b's W2 at giant's shapes, one
+  launch over the slices) torch.equal to its slices' residual launches
+  chained through memory, with both times."""
+  m, k, n, chunks = CHAIN_PRODUCT
+  a = torch.randn((m, k), generator=gen, device=device).bfloat16()
+  w = (torch.randn((k, n), generator=gen, device=device) / k ** 0.5).bfloat16()
+  bias = (0.1 * torch.randn((n,), generator=gen, device=device)).bfloat16()
+  pads = (torch.rand((m, 1), generator=gen, device=device) < 0.1).bfloat16()
+  x = torch.randn((m, n), generator=gen, device=device).bfloat16()
+  kc = k // chunks
+  slices = [(a[:, c * kc:(c + 1) * kc].contiguous(),
+             w[c * kc:(c + 1) * kc].contiguous()) for c in range(chunks)]
+
+  def chained():
+    out = x
+    for c, (a_c, w_c) in enumerate(slices):
+      out = tb.gemm_bf16(a_c, w_c, epilogue='residual',
+                         bias=bias if c == 0 else None, pads=pads,
+                         residual=out)
+    return out
+
+  one = lambda: tb.gemm_bf16(a, w, epilogue='chain', chunks=chunks,
+                             bias=bias, pads=pads, residual=x)
+  same = torch.equal(one(), chained())
+  ms, chain_ms = (device_ms(fn, iters=10) for fn in (one, chained))
+  flops = 2.0 * m * n * k
+  print(f'[gemm] chain [{m}, {k}] @ [{k}, {n}] in {chunks} slices: device '
+        f'{ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s; {chunks} residual '
+        f'launches {chain_ms:.4f} ms; '
+        f'{"torch.equal" if same else "DIFFERS"} to them')
+  check(same, 'the chained epilogue differs from its slices\' launches')
 
 
 def phase_gemm_i8(device) -> None:
@@ -609,6 +669,58 @@ def phase_gemm_i8(device) -> None:
       check(ok, f'int8 GEMM {name} at B={b} ({epilogue}) disagrees with the '
             'fp32 formula')
       del a, w, w_kn, a16, w16, res, got, want, exact, raw
+  _gemm_act_quant(device, gen)
+
+
+# K9's W1 [rows, D] @ [F, D]^T quantized per F-chunk: at 8192 rows of the
+# base width, and at the giant encoder's rows for one clip.
+ACT_QUANT_PRODUCTS = ((8192, 768, 3072, 1), (2048, 1408, 6144, 2))
+
+
+def _gemm_act_quant(device, gen) -> None:
+  """[gemm-i8]: K9's W1 quantizing its hidden activation in its epilogue,
+  its codes and scales torch.equal to the fp32 activation ('act_keep')
+  quantized per chunk by the standalone quantizer, with the grid and band
+  its launch checked and the device times of both; beside them the same
+  W1 with ReLU, 'act_keep' alone and the int32 products alone (CUDA
+  events), which show what bounds it: the exact-erf GELU epilogue, or
+  the products."""
+  sms = torch.cuda.get_device_properties(device).multi_processor_count
+  for m, k, n, chunks in ACT_QUANT_PRODUCTS:
+    a = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8,
+                      device=device)
+    w = torch.randint(-127, 128, (n, k), generator=gen, dtype=torch.int8,
+                      device=device)
+    kw = dict(a_scale=torch.rand((m,), generator=gen, device=device) * 1e-4,
+              b_scale=torch.rand((n,), generator=gen, device=device) * 1e-2,
+              bias=(0.1 * torch.randn((n,), generator=gen, device=device)
+                    ).bfloat16(),
+              pads=(torch.rand((m, 1), generator=gen, device=device)
+                    < 0.1).bfloat16(), activation='gelu')
+    fused = lambda: i8.gemm_i8_act_quant(a, w, chunks=chunks, **kw)
+    composed = lambda: i8.quantize_rows(
+        i8.gemm_i8(a, w, epilogue='act_keep', **kw), chunks=chunks)
+    (codes, scales), (codes2, scales2) = fused(), composed()
+    same = torch.equal(codes, codes2) and torch.equal(scales, scales2)
+    relu = dict(kw, activation='relu')
+    ms, composed_ms = (device_ms(fn, iters=10) for fn in (fused, composed))
+    relu_ms, keep_ms, raw_ms = (cuda_ms(fn, warmup=3, iters=20) for fn in (
+        lambda: i8.gemm_i8_act_quant(a, w, chunks=chunks, **relu),
+        lambda: i8.gemm_i8(a, w, epilogue='act_keep', **kw),
+        lambda: i8.gemm_i8(a, w)))
+    grid, band = i8.act_quant_grid(m, n, chunks, device)
+    print(f'[gemm-i8] act_quant [{m}, {k}] @ [{n}, {k}]^T in {chunks} '
+          f'chunk(s): device {ms:.4f} ms with the zeroing of its scratch, '
+          f'{2.0 * m * n * k / ms / 1e9:.1f} TOP/s; '
+          f'act_keep + quantize_rows {composed_ms:.4f} ms; codes and scales '
+          f'{"torch.equal" if same else "DIFFER"} to them; grid {grid} of '
+          f'{sms} SMs, bands of {band} tiles (2 x grid > band: '
+          f'{2 * grid > band}); by events, with ReLU {relu_ms:.4f} ms, '
+          f'act_keep alone {keep_ms:.4f} ms, int32 products alone '
+          f'{raw_ms:.4f} ms')
+    check(same, f'act_quant at {m} x {n} differs from act_keep + '
+          'quantize_rows')
+    del a, w, codes, scales, codes2, scales2
 
 
 def host_breakdown(device) -> None:
@@ -763,14 +875,24 @@ def device_parts(case: cases_lib.Case, *, calls: int = 8) -> tuple[list, float,
   over ``calls`` calls, one profiler session each (:func:`kernel_records`):
   ([(kernel name, mean device µs)] in launch order, mean µs from the first
   kernel's start to the last one's end, mean idle µs inside that span).
-  The count is the largest any session saw (a session can lose a kernel
-  record, never gain one: nothing else launches inside it), and a session
-  that lost one is left out of the means."""
+  A session that saw no kernel at all is taken again, up to three times
+  (after many sessions in one process some lose every record); the count
+  is the one most of the others saw (ties to the larger): a session can
+  lose a kernel record, and one on the card has also shown records that
+  are not the call's (one K12a call counted 8 kernels once, 1 in every
+  other run). The other sessions are left out of the means."""
   run = lambda: case.fn(*case.args, **case.kwargs, impl='kernel')
-  sessions = [kernel_records(run) for _ in range(calls)]
-  n = max(len(k) for k in sessions)
+  sessions = []
+  for _ in range(calls):
+    for _ in range(3):
+      records = kernel_records(run)
+      if records:
+        break
+    sessions.append(records)
+  counts = collections.Counter(len(k) for k in sessions if k)
+  check(bool(counts), f'{case.label}: the profiler saw no device kernel')
+  n = max(counts, key=lambda c: (counts[c], c))
   sessions = [k for k in sessions if len(k) == n]
-  check(n > 0, f'{case.label}: the profiler saw no device kernel')
   parts = []
   for i in range(n):
     name = re.sub(r'^void |vp::|\(anonymous namespace\)::|\(.*$', '',
@@ -806,9 +928,30 @@ def int8_part_cases(device) -> list[cases_lib.Case]:
   ]
 
 
-# Device kernels per call of the fused int8 blocks (the profiler's count).
+# The giant int8 encoder's K9 for one clip (2048 rows, 2 F-chunks), whose
+# device kernels [host] lists and [kernels] counts beside the base width's.
+def int8_giant_ffn_case(device) -> cases_lib.Case:
+  return cases_lib.int8_ffn_case(2048, 1408, 6144, activation='gelu',
+                                 padded=False, chunks=2, device=device)
+
+
+# K2 and K8b (vc large's and vc giant's rows for two clips), held to their
+# composition from the primitives and counted by the profiler.
+def ffn_part_cases(device) -> list[cases_lib.Case]:
+  return [cases_lib.ffn_case(8192, 768, 3072, activation='gelu', padded=True,
+                             device=device),
+          cases_lib.ffn_case(4096, 1024, 4096, activation='gelu',
+                             padded=True, chunks=2, device=device),
+          cases_lib.ffn_case(4096, 1408, 6144, activation='gelu',
+                             padded=True, chunks=4, device=device)]
+
+
+# Device kernels per call of the fused blocks (the profiler's count); K9's
+# by its chunk count (the quantizer, W1 with codes, W2 per chunk).
 FUSED_KERNELS = {'int8_layer_block': 6, 'int8_out_projection': 1,
-                 'int8_qkv_projection': 1}
+                 'int8_qkv_projection': 1,
+                 'int8_ffn_block_chunked': {1: 3, 2: 4},
+                 'fused_ffn_block': 3, 'fused_ffn_block_chunked': 3}
 
 
 def check_int8_fusion(device) -> None:
@@ -817,8 +960,10 @@ def check_int8_fusion(device) -> None:
   the primitives in separate launches (``cases.int8_composed``): K11 at the
   paths' three shapes and (2, 2), K12b and K12a at the auxiliary encoder's
   8192 rows and at giant's width (D = NH = 1408, the [gate] layer's 1032
-  rows), K10 and K9 over two chunks; and the device kernels one call
-  launches, by the profiler: 6 for K11, 1 for K12a and K12b."""
+  rows), K10 over two chunks, K9 at one and two chunks and at giant's
+  width; K2 and K8b at two and four F-slices likewise
+  (``cases.ffn_composed``); and the device kernels one call launches, by
+  the profiler (``FUSED_KERNELS``)."""
   for case in (int8_part_cases(device)
                + cases_lib.int8_projection_cases(1032, 1408, 1408,
                                                  device=device)
@@ -829,17 +974,26 @@ def check_int8_fusion(device) -> None:
                                                 chunks=2, device=device),
                   cases_lib.int8_ffn_case(8192, 768, 3072, activation='gelu',
                                           padded=True, chunks=2,
-                                          device=device)]):
+                                          device=device),
+                  int8_giant_ffn_case(device)]
+               + ffn_part_cases(device)):
     fused = cases_lib._joined(case.fn(*case.args, **case.kwargs))
-    composed = cases_lib._joined(cases_lib.int8_composed(case))
+    composed = cases_lib._joined(
+        cases_lib.ffn_composed(case) if case.kernel.startswith('fused_')
+        else cases_lib.int8_composed(case))
     same = torch.equal(fused, composed)
-    kernels = len(device_parts(case)[0])
+    parts = device_parts(case)[0]
+    kernels = len(parts)
     want = FUSED_KERNELS.get(case.kernel)
+    if isinstance(want, dict):
+      want = want[case.kwargs['chunks']]
     print(f'[kernels] {case.kernel} {case.label}: '
           f'{"bitwise equal" if same else "DIFFERS"} to its composition from '
           f'the primitives (max |diff| {(fused - composed).abs().max():.3g}); '
           f'{kernels} device kernels per call'
-          + ('' if want is None else f' (want {want})'))
+          + ('' if want is None else f' (want {want})')
+          + ('' if want in (None, kernels)
+             else ': ' + ', '.join(name for name, _ in parts)))
     check(same, f'{case.kernel} {case.label} differs from its composition')
     check(want is None or kernels == want,
           f'{case.kernel} {case.label}: {kernels} device kernels per call, '
@@ -847,8 +1001,10 @@ def check_int8_fusion(device) -> None:
 
 
 def print_device_parts(device) -> None:
-  """[host]: each int8 part case's device kernels per call."""
-  for case in int8_part_cases(device):
+  """[host]: the device kernels per call of each int8 part case, of K9 at
+  the giant encoder's width, and of K2 and K8b."""
+  for case in (int8_part_cases(device) + [int8_giant_ffn_case(device)]
+               + ffn_part_cases(device)):
     parts, span, idle = device_parts(case)
     print(f'[host] {case.kernel} {case.label}: {len(parts)} device kernels '
           f'per call, {span:.2f} us first start to last end, idle '
@@ -2014,6 +2170,69 @@ def phase_times(device, model, params, clip_model, clip_params, vc_runs,
       torch.cuda.empty_cache()
 
 
+def block_outputs(device) -> dict[str, torch.Tensor]:
+  """The fused blocks' outputs (K1, K2, K8a, K8b, K9-K12b) through their
+  wrappers on the seeded inputs of ``cases`` at the [kernels] shapes, by
+  case, on the host."""
+  attention, ffn = cases_lib.attention_case, cases_lib.ffn_case
+  int8_ffn = cases_lib.int8_ffn_case
+  outputs = {}
+  for case in (
+      attention(32, 256, 768, 12, 64, cap=50.0, padded=False, device=device),
+      attention(512, 16, 768, 12, 64, cap=50.0, padded=False, device=device),
+      attention(2, 65, 768, 12, 64, cap=50.0, padded=True, causal=True,
+                device=device),
+      ffn(8192, 768, 3072, activation='gelu', padded=True, device=device),
+      attention(16, 256, 1408, 16, 88, cap=50.0, padded=False, chunks=2,
+                device=device),
+      attention(512, 8, 1408, 16, 88, cap=50.0, padded=False, chunks=2,
+                device=device),
+      ffn(4096, 1024, 4096, activation='gelu', padded=True, chunks=2,
+          device=device),
+      ffn(4096, 1408, 6144, activation='gelu', padded=True, chunks=4,
+          device=device),
+      int8_ffn(8192, 768, 3072, activation='gelu', padded=True, chunks=1,
+               device=device),
+      int8_ffn(8192, 768, 3072, activation='relu', padded=True, chunks=2,
+               device=device),
+      int8_ffn(2048, 1408, 6144, activation='gelu', padded=False, chunks=2,
+               device=device),
+      cases_lib.int8_attention_case(32, 256, 768, 12, 64, cap=50.0,
+                                    padded=True, chunks=2, device=device),
+      cases_lib.int8_layer_case(512, 16, 768, 12, 64, 3072, cap=50.0,
+                                padded=True, chunks=(2, 2), device=device),
+      *cases_lib.int8_projection_cases(8192, 768, 768, device=device)):
+    out = case.fn(*case.args, **case.kwargs, impl='kernel')
+    outputs[f'{case.kernel} {case.label}'] = cases_lib._joined(out).cpu()
+  return outputs
+
+
+def compare_outputs(mode: str, path: str) -> int:
+  """``--outputs save DIR`` writes :func:`block_outputs` to DIR;
+  ``--outputs against DIR`` holds this tree's to the saved ones
+  (torch.equal, and the share of elements that differ), exiting 1 where
+  one differs.  Run with this script copied into another tree (its
+  package is the one imported from the working directory), two trees'
+  kernels are held to the same bits on one card."""
+  check(torch.cuda.is_available(), 'torch.cuda.is_available() is False')
+  outputs = block_outputs(torch.device('cuda', 0))
+  file = os.path.join(path, 'outputs.pt')
+  if mode == 'save':
+    os.makedirs(path, exist_ok=True)
+    torch.save(outputs, file)
+    print(f'[outputs] {len(outputs)} saved to {file}')
+    return 0
+  saved = torch.load(file)
+  differ = 0
+  for key, got in outputs.items():
+    same = torch.equal(got, saved[key])
+    differ += not same
+    print(f'[outputs] {key}: {"torch.equal" if same else "DIFFERS"} to the '
+          f'saved ({(got != saved[key]).float().mean().item():.4%} of '
+          'elements differ)')
+  return 1 if differ else 0
+
+
 def phase(name: str) -> None:
   """Names the phase that runs next, so that a failure names itself."""
   print(f'[phase] {name}', flush=True)
@@ -2115,6 +2334,8 @@ def main() -> int:
 
 if __name__ == '__main__':
   try:
+    if sys.argv[1:2] == ['--outputs'] and len(sys.argv) == 4:
+      sys.exit(compare_outputs(sys.argv[2], sys.argv[3]))
     sys.exit(main())
   except SmokeFailure as e:
     print(f'chip_smoke: FAILED: {e}', file=sys.stderr)

@@ -233,6 +233,17 @@ def test_dispatch_counts_and_refusals(device):
     att.fn(*att.args, **dict(att.kwargs, chunks=3))
   with pytest.raises(ValueError, match='chunks'):
     ffn.fn(*ffn.args, **dict(ffn.kwargs, chunks=64))   # slices of 4
+  # K2 and K8b (one chained output launch, slices of 136 and 64, off the
+  # GEMM's 64-deep tiles) are the bits of their composition from separate
+  # launches.
+  for case in (cases_lib.ffn_case(200, 136, 272, activation='gelu',
+                                  padded=True, device=device),
+               cases_lib.ffn_case(200, 136, 272, activation='gelu',
+                                  padded=True, chunks=2, device=device),
+               cases_lib.ffn_case(200, 136, 256, activation='relu',
+                                  padded=True, chunks=4, device=device)):
+    assert torch.equal(case.fn(*case.args, **case.kwargs),
+                       cases_lib.ffn_composed(case)), case.label
   _int8_kernels_and_dispatch(device)
 
 
@@ -485,9 +496,13 @@ def _int8_kernels_and_dispatch(device):
   ])
   # The products that quantize their own rows (K12b at ragged rows and
   # giant's width, K12a in 128-row blocks at ragged rows, K11 at (2, 2) and
-  # T = 65) hold their twins and are the bits of their composition from the
-  # primitives in separate launches.
+  # T = 65) and K9, whose W1 quantizes its hidden activation (F-chunks of
+  # 144 and 64, off the 128-column tiles), hold their twins and are the
+  # bits of their composition from the primitives in separate launches.
   fused = [
+      ffn,
+      cases_lib.int8_ffn_case(200, 144, 256, activation='relu', padded=True,
+                              chunks=4, device=device),
       cases_lib.int8_projection_cases(17000, 256, 128, device=device)[0],
       *cases_lib.int8_projection_cases(300, 1408, 1408, device=device),
       cases_lib.int8_layer_case(2, 65, 256, 4, 64, 512, cap=50.0, padded=True,

@@ -123,18 +123,21 @@ enum Epilogue : int {
   kEpiQkv = 0,       // + bias, x col_scale on the first scaled_cols columns
   kEpiActKeep = 1,   // + bias, activation, x keep
   kEpiResidual = 2,  // + bias, x keep (when pads given), + residual in fp32
+  kEpiChain = 3,     // kEpiResidual over `chunks` K-slices, cast after each
 };
 enum Activation : int { kActNone = 0, kActGelu = 1, kActRelu = 2 };
 
 // out[M, N] = epilogue(a[M, K] @ b[K, N]) in bf16 with fp32 accumulation;
-// row m of a starts at a + m * lda (lda = K for a contiguous a).
-// bias (kEpiResidual only), pads (1 = padded row, keep = 1 - pad) and
-// residual may be null.  Needs K, N, lda and the offset of a in elements to
+// row m of a starts at a + m * lda (lda = K for a contiguous a).  bias and
+// pads (1 = padded row, keep = 1 - pad) may be null; kEpiResidual and
+// kEpiChain need the residual [M, N]; kEpiChain cuts K into `chunks` slices
+// of K / chunks (the other epilogues take chunks = 1), kEpiActKeep GELU or
+// ReLU.  Needs N, lda, the slices' width and the offset of a in elements to
 // be multiples of 8 (16-byte rows); a ragged K edge is zero-filled.
 cudaError_t launch_gemm_bf16(const bf16* a, const bf16* b, const bf16* bias, const bf16* pads,
                              const bf16* residual, bf16* out, int M, int N, int K, int lda,
                              int epilogue, int activation, float col_scale, int scaled_cols,
-                             cudaStream_t stream);
+                             int chunks, cudaStream_t stream);
 
 // Soft-capped softmax attention over a fused [B*T, 3*N*H] q|k|v buffer
 // (q already scaled) into ctx [B*T, N*H].  mask is an fp32 [mb, mt, T]

@@ -4,15 +4,20 @@
 //
 // Replaces the four matrix products inside K1 (_attn_block_kernel: fused
 // QKV, output projection) and K2 (_ffn_block_kernel: W1, W2) of
-// videoprism_tpu/ops/pallas/transformer_block.py, and the per-chunk output
+// videoprism_tpu/ops/pallas/transformer_block.py, and the chained output
 // products of K8a/K8b (_attn_chunk_kernel, _ffn_chunk_kernel), with their
 // epilogues, in this fp32 order:
 //   kEpiQkv      (acc + bias) * query_scale on the q columns, cast;
 //   kEpiActKeep  act(acc + b1) * keep, cast;              (exact-erf GELU)
-//   kEpiResidual (acc [+ bias]) [* keep] + residual in fp32, cast.
-// A is read with its own row pitch (lda), so a chunk's K-slice of a wider
-// activation (K8a's ctx columns of one head group, K8b's F-slice of a) is
-// multiplied in place.
+//   kEpiResidual (acc [+ bias]) [* keep] + residual, cast;
+//   kEpiChain    the residual epilogue over `chunks` K-slices, cast after
+//                each: y = x, then per slice c
+//                  y = cast((acc_c [+ bias if c == 0]) [* keep] + y),
+//                the bits of `chunks` kEpiResidual launches chained
+//                through memory (K8a's head groups, K8b's F-slices).
+// Every step is rounded on its own (__fadd_rn, __fmul_rn), so a product
+// and the same product composed from separate launches are the same bits.
+// A is read with its own row pitch (lda).
 //
 // Bound: tensor-core FLOPs.  At the base model's shapes (K = 768 or 3072,
 // N = 768..3072, M = B * 4096) every product does hundreds of FLOPs per byte
@@ -23,23 +28,33 @@
 // ([128, 64], K-major) and of the B tile ([64, 128] as two boxes of
 // [64, 64], N-major: the weights stay [K, N], read by wgmma's transpose-B
 // mode) into a ring of six shared-memory stages with 128-byte swizzle,
-// completion reported to an mbarrier per stage.  Two consumer warpgroups
-// take the block's tiles in turn (ping-pong), each multiplying a whole
-// 128 x 128 tile with wgmma.mma_async m64n128k16 from shared memory into
-// fp32 registers, keeping one k-tile's products in flight while releasing
-// the stage before it: while one runs its epilogue the other multiplies,
-// and the producer runs ahead into the next tiles.  setmaxnreg moves
-// registers from the producer to the consumers.  TMA zero-fills the ragged
-// M, N and K edges (the 16-byte row pitch and alignment the wrapper checks
-// are what TMA needs), so the loop masks nothing.  The epilogue runs on the
-// accumulator registers: bias per column, keep per row, the q scale, GELU
-// and the residual read as bf16 pairs (all of a row block's loads issued
-// before use), and the output goes out as bf16 pairs once, guarded at the
-// edges.  Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py [gemm]):
-// the base encoder's four products at B = 8 with their epilogues run at
-// 269-532 TFLOP/s, the deep one (K = 3072) fastest: at K = 768 a tile's
-// twelve k-steps leave its start-up and the exact-erf GELU epilogue (W1)
-// exposed.  PERF.md says what was tried beyond this.
+// completion reported to an mbarrier per stage.  Both tensor maps are 3-D,
+// A as [M, chunks, kc] and B as [chunks, kc, N], so a k-tile that runs
+// past a slice's kc columns reads zeros there (TMA zero-fills out of
+// bounds) and never the next slice's: a chained product walks its slices'
+// k-tiles as its separate launches would, whatever kc is.  Two consumer
+// warpgroups take the block's tiles in turn (ping-pong), each multiplying
+// a whole 128 x 128 tile with wgmma.mma_async m64n128k16 from shared memory
+// into fp32 registers, keeping one k-tile's products in flight while
+// releasing the stage before it: while one runs its epilogue the other
+// multiplies, and the producer runs ahead into the next tiles.  setmaxnreg
+// moves registers from the producer to the consumers.  TMA zero-fills the
+// ragged M, N and K edges, so the loop masks nothing.
+// The epilogue, its activation and the presence of the bias and the pads
+// are template constants: the tile's unrolled 64 copies of the epilogue
+// hold one arm, not all of them (a run-time switch inside the unrolled
+// loop cost the int8 GEMM 2-2.7x).  The bias of the tile's 128 columns is
+// staged in shared memory once per tile; the bf16 outputs go through a
+// per-warpgroup staging of 64 rows, their 16-byte units XOR-swizzled by
+// row so that the accumulator layout's pair stores (eight rows by four
+// column pairs a warp) hit 32 banks, and out in 16-byte stores, whole rows
+// at a time.  kEpiResidual's residual is prefetched into that staging by
+// cp.async when the tile starts (its loads overlap the products).
+// kEpiChain keeps its running output y in registers as packed bf16 pairs,
+// 64 beside the 128 fp32 accumulators, loaded from x when the tile starts;
+// at the end of each slice the consumer folds the accumulator into y and
+// zeroes it, and only the last fold is stored: one launch and one pass
+// over the residual where the chain of launches made `chunks`.
 // The tensor maps are encoded on the host per launch (tma_wgmma.cuh).
 #include "tma_wgmma.cuh"
 
@@ -52,10 +67,21 @@ constexpr int kThreads = 384;            // producer + 2 consumer warpgroups
 constexpr int kBox = BK * 128;           // bytes of one [64 rows, 64] bf16 box
 constexpr int kTileA = BM * BK * 2;      // bytes: [128, 64]
 constexpr int kStage = kTileA + BK * BN * 2;
-constexpr int kStages = 6;
-// 1 KB of slack to align the ring to the swizzle's 1024-byte period, then
-// the ring, then a full and an empty barrier per stage.
-constexpr size_t kSmem = 1024 + size_t(kStages) * kStage + 2 * kStages * 8;
+constexpr int kWgRows = 64;              // rows of a warpgroup's output staging
+constexpr int kStaging = kWgRows * BN * 2;
+constexpr int kSmemMax = 232448;         // an H100 block's dynamic shared memory
+// After 1 KB of slack that aligns the ring to the swizzle's 1024-byte
+// period: the ring, each consumer warpgroup's staging and its tile's bias,
+// then a full and an empty barrier per stage; as many stages as fit.
+constexpr int kFixed = 1024 + 2 * kStaging + 2 * BN * 2;
+constexpr int kStages = (kSmemMax - kFixed) / (kStage + 16) < 6
+                            ? (kSmemMax - kFixed) / (kStage + 16)
+                            : 6;
+static_assert(kStages >= 4, "the ring needs at least four stages");
+constexpr int kOffStaging = kStages * kStage;
+constexpr int kOffBias = kOffStaging + 2 * kStaging;
+constexpr int kOffBars = kOffBias + 2 * BN * 2;
+constexpr size_t kSmem = 1024 + kOffBars + 2 * kStages * 8;
 
 // Keeps the compiler from moving accumulator reads or writes across the
 // asynchronous products.
@@ -91,41 +117,56 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+// Named barrier `id` over one consumer warpgroup (128 threads).
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
 __device__ __forceinline__ uint32_t ldg_u32(const bf16* p) {
   return __ldg(reinterpret_cast<const unsigned int*>(p));
 }
 __device__ __forceinline__ float2 bf16x2_to_float2(uint32_t w) {
   return __bfloat1622float2(*reinterpret_cast<const bf162*>(&w));
 }
-
-__device__ __forceinline__ float activate(float v, int act) {
-  if (act == kActGelu) return 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
-  if (act == kActRelu) return fmaxf(v, 0.f);
-  return v;
+__device__ __forceinline__ uint32_t float2_to_bf16x2(float a, float b) {
+  const bf162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
 }
+
+template <int kAct>
+__device__ __forceinline__ float activate(float v) {
+  if constexpr (kAct == kActGelu) return 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
+  else return fmaxf(v, 0.f);
+}
+
+// Byte offset of 16-byte unit u (columns 8u..8u+7) of row r in a
+// warpgroup's staging: rows of 256 bytes, units XOR-swizzled by r % 8.
+__device__ __forceinline__ int staged(int r, int u) { return r * (BN * 2) + ((u ^ (r & 7)) << 4); }
 
 struct Epi {
   const bf16* bias;
   const bf16* pads;
   const bf16* residual;
   bf16* out;
-  int M, N, K, epilogue, act;
+  int M, N, chunks, kc;  // K = chunks * kc
   float col_scale;
   int scaled_cols;
 };
 
+template <int kEpi, int kAct, bool kPads, bool kBias>
 __global__ void __launch_bounds__(kThreads, 1)
     gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
-                     const __grid_constant__ CUtensorMap map_b, const Epi p) {
+                     const __grid_constant__ CUtensorMap map_b, const __grid_constant__ Epi p) {
+  constexpr bool kChain = kEpi == kEpiChain;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kStage);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kOffBars);
   uint64_t* empty = full + kStages;
   const int wg = threadIdx.x / 128;
   const int tiles_n = (p.N + BN - 1) / BN;
   const int tiles = (p.M + BM - 1) / BM * tiles_n;
-  const int ktiles = (p.K + BK - 1) / BK;
+  const int ktc = (p.kc + BK - 1) / BK, KT = p.chunks * ktc;  // k-tiles a slice, a tile
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
@@ -136,24 +177,29 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
 
   // The block's tiles are i = 0, 1, .. (tile blockIdx.x + i * gridDim.x, =
-  // m block * tiles_n + n block); the producer loads them in order and
-  // consumer warpgroup i % 2 multiplies tile i.  Both count k-tiles across
-  // tiles in `it` (tile i's k-tile kt is it = i * ktiles + kt): use it of
-  // the ring is stage it % kStages, its (it / kStages)-th fill.
+  // m block * tiles_n + n block); the producer loads their k-tiles (slice
+  // by slice) in order and consumer warpgroup i % 2 multiplies tile i.  The
+  // ring's stage and round are kept as counters: step it of the walk is
+  // stage it % kStages, its (it / kStages)-th fill.
   if (wg == 0) {  // producer: one thread keeps the ring full
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 0) {
-      int it = 0;
+      int s = 0, round = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
         const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
-        for (int kt = 0; kt < ktiles; ++kt, ++it) {
-          const int s = it % kStages;
-          if (it >= kStages) mbar_wait(&empty[s], (it / kStages - 1) & 1);
-          unsigned char* stage = ring + s * kStage;
-          mbar_expect_tx(&full[s], kStage);
-          tma_load(stage, &map_a, &full[s], kt * BK, m0);
-          tma_load(stage + kTileA, &map_b, &full[s], n0, kt * BK);
-          tma_load(stage + kTileA + kBox, &map_b, &full[s], n0 + 64, kt * BK);
+        for (int c = 0; c < p.chunks; ++c) {
+          for (int kt = 0; kt < ktc; ++kt) {
+            if (round > 0) mbar_wait(&empty[s], (round - 1) & 1);
+            unsigned char* stage = ring + s * kStage;
+            mbar_expect_tx(&full[s], kStage);
+            tma_load3(stage, &map_a, &full[s], kt * BK, c, m0);
+            tma_load3(stage + kTileA, &map_b, &full[s], n0, kt * BK, c);
+            tma_load3(stage + kTileA + kBox, &map_b, &full[s], n0 + 64, kt * BK, c);
+            if (++s == kStages) {
+              s = 0;
+              ++round;
+            }
+          }
         }
       }
     }
@@ -162,114 +208,215 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // Consumers, ping-pong: while one warpgroup runs its tile's epilogue the
   // other multiplies the next tile, so the tensor cores do not wait for
-  // the epilogue.  The main loops take turns in tile order (warpgroup c
-  // waits on named barrier 1 + c, which the other arrives at when its
-  // main loop is done): so a consumer never waits on a stage's barrier
-  // more than one fill ahead, where its phase parity would be ambiguous.
+  // the epilogue.  The main loops (all of a tile's slices) take turns in
+  // tile order (warpgroup c waits on named barrier 1 + c, which the other
+  // arrives at when its main loop is done): so a consumer never waits on a
+  // stage's barrier more than one fill ahead, where its phase parity would
+  // be ambiguous.  Named barrier 3 + c syncs warpgroup c alone.
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
   const int cw = wg - 1;
-  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, c2 = 2 * (lane % 4);
-  float acc[2][64];  // rows 64 * mh + 16 * warp + g (+ 8) of the tile
+  unsigned char* staging = ring + kOffStaging + cw * kStaging;
+  bf16* tile_bias = reinterpret_cast<bf16*>(ring + kOffBias) + cw * BN;
+  float acc[2][64];             // rows 64 * mh + 16 * warp + g (+ 8 h) of the tile
+  uint32_t y[kChain ? 64 : 1];  // kEpiChain: y[32 mh + 2 jn + h], the pair of acc[mh][4 jn + 2 h]
+  float keep[2][2];
   for (int i = cw, tile = blockIdx.x + cw * gridDim.x; tile < tiles;
        i += 2, tile += 2 * gridDim.x) {
     const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
+    // 64 rows of the residual into the staging, 16 bytes a copy (rows and
+    // columns past the output read as zeros): the first 64 before the
+    // tile's products, so that the loads overlap them.
+    auto fetch_residual = [&](int r0) {
+      for (int idx = tid; idx < kWgRows * 16; idx += 128) {
+        const int r = idx / 16, u = idx % 16, row = r0 + r, col = n0 + 8 * u;
+        const bool ok = row < p.M && col < p.N;
+        cp_async16(staging + staged(r, u),
+                   ok ? p.residual + static_cast<size_t>(row) * p.N + col : p.residual, ok);
+      }
+      cp_async_commit();
+    };
+    if constexpr (kEpi == kEpiResidual) fetch_residual(m0);
+    if constexpr (kBias) {  // the previous tile's epilogue ended at a warpgroup sync
+      const int col = n0 + tid;
+      tile_bias[tid] = col < p.N ? p.bias[col] : __float2bfloat16(0.f);
+    }
 #pragma unroll
     for (int mh = 0; mh < 2; ++mh)
 #pragma unroll
-      for (int e = 0; e < 64; ++e) acc[mh][e] = 0.f;
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + 64 * mh + 16 * warp + g + 8 * h;
+        keep[mh][h] =
+            kPads && row < p.M ? 1.f - __bfloat162float(p.pads[row]) : 1.f;
+        if constexpr (kChain) {  // y = x: loads in flight during the products
+#pragma unroll
+          for (int jn = 0; jn < 16; ++jn) {
+            const int col = n0 + 8 * jn + c2;  // N is a multiple of 8: col + 1 < N too
+            y[32 * mh + 2 * jn + h] =
+                row < p.M && col < p.N
+                    ? ldg_u32(p.residual + static_cast<size_t>(row) * p.N + col)
+                    : 0u;
+          }
+        }
+      }
+    if constexpr (kBias) warpgroup_sync(3 + cw);  // the bias is staged
 
     if (i > 0) consumer_sync(1 + cw);
-    for (int kt = 0, it = i * ktiles; kt < ktiles; ++kt, ++it) {
-      const int s = it % kStages;
-      mbar_wait(&full[s], (it / kStages) & 1);
-      // A: 128 rows of 128 bytes, 8-row groups 1024 bytes apart; a 16-deep
-      // step is 32 bytes along the row.  B: two [64 K rows, 64 N] boxes of
-      // 8 KB side by side (LBO, the next 64 columns), 8-row groups 1024
-      // bytes apart (SBO); a 16-deep step is 16 rows.
-      const uint32_t a_base = smem_u32(ring + s * kStage);
-      const uint32_t b_base = a_base + kTileA;
+    int s = i * KT % kStages, round = i * KT / kStages;
+    for (int c = 0; c < p.chunks; ++c) {
 #pragma unroll
-      for (int mh = 0; mh < 2; ++mh) fence_acc(acc[mh]);
-      wgmma_fence();
+      for (int mh = 0; mh < 2; ++mh)
 #pragma unroll
-      for (int k = 0; k < BK / 16; ++k) {
-        const uint64_t db = sw128_desc(b_base + 2048 * k, kBox, 1024);
+        for (int e = 0; e < 64; ++e) acc[mh][e] = 0.f;
+      int prev = -1;  // the stage of the k-tile still being multiplied
+      for (int kt = 0; kt < ktc; ++kt) {
+        mbar_wait(&full[s], round & 1);
+        // A: 128 rows of 128 bytes, 8-row groups 1024 bytes apart; a
+        // 16-deep step is 32 bytes along the row.  B: two [64 K rows, 64 N]
+        // boxes of 8 KB side by side (LBO, the next 64 columns), 8-row
+        // groups 1024 bytes apart (SBO); a 16-deep step is 16 rows.
+        const uint32_t a_base = smem_u32(ring + s * kStage);
+        const uint32_t b_base = a_base + kTileA;
 #pragma unroll
-        for (int mh = 0; mh < 2; ++mh)
-          wgmma_m64n128k16(acc[mh], sw128_desc(a_base + mh * 64 * 128 + 32 * k, 16, 1024), db);
+        for (int mh = 0; mh < 2; ++mh) fence_acc(acc[mh]);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < BK / 16; ++k) {
+          const uint64_t db = sw128_desc(b_base + 2048 * k, kBox, 1024);
+#pragma unroll
+          for (int mh = 0; mh < 2; ++mh)
+            wgmma_m64n128k16(acc[mh], sw128_desc(a_base + mh * 64 * 128 + 32 * k, 16, 1024),
+                             db);
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int mh = 0; mh < 2; ++mh) fence_acc(acc[mh]);
+        wgmma_wait<1>();  // the previous k-tile is multiplied: release its stage
+        __syncwarp();
+        if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+        prev = s;
+        if (++s == kStages) {
+          s = 0;
+          ++round;
+        }
       }
-      wgmma_commit();
+      if (c == p.chunks - 1 && tile + gridDim.x < tiles)
+        consumer_arrive(2 - cw);  // tile i + 1 may start
+      wgmma_wait<0>();
 #pragma unroll
       for (int mh = 0; mh < 2; ++mh) fence_acc(acc[mh]);
-      wgmma_wait<1>();  // the previous k-tile is multiplied: release its stage
       __syncwarp();
-      if (kt > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % kStages]);
-    }
-    if (tile + gridDim.x < tiles) consumer_arrive(2 - cw);  // tile i + 1 may start
-    wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(&empty[prev]);
+      if constexpr (kChain) {  // fold slice c into y
 #pragma unroll
-    for (int mh = 0; mh < 2; ++mh) fence_acc(acc[mh]);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[((i + 1) * ktiles - 1) % kStages]);
+        for (int jn = 0; jn < 16; ++jn) {
+          float2 b = make_float2(0.f, 0.f);
+          if (kBias && c == 0)
+            b = bf16x2_to_float2(*reinterpret_cast<const uint32_t*>(tile_bias + 8 * jn + c2));
+#pragma unroll
+          for (int mh = 0; mh < 2; ++mh)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float v0 = acc[mh][4 * jn + 2 * h], v1 = acc[mh][4 * jn + 2 * h + 1];
+              if (kBias && c == 0) {
+                v0 = __fadd_rn(v0, b.x);
+                v1 = __fadd_rn(v1, b.y);
+              }
+              if constexpr (kPads) {
+                v0 = __fmul_rn(v0, keep[mh][h]);
+                v1 = __fmul_rn(v1, keep[mh][h]);
+              }
+              uint32_t& yy = y[32 * mh + 2 * jn + h];
+              const float2 r = bf16x2_to_float2(yy);
+              yy = float2_to_bf16x2(__fadd_rn(v0, r.x), __fadd_rn(v1, r.y));
+            }
+        }
+      }
+    }
 
-    // The epilogue, 64 rows at a time: every load it needs there (bias
-    // pairs, the rows' keep and residual pairs) is issued before any is
-    // used, so their latencies overlap.
-    uint32_t bias[16];
-#pragma unroll
-    for (int jn = 0; jn < 16; ++jn) {
-      const int col = n0 + 8 * jn + c2;  // N is even: col + 1 < N too
-      bias[jn] = p.bias && col < p.N ? ldg_u32(p.bias + col) : 0u;
-    }
+    // The epilogue, 64 rows at a time: each thread's bf16 pairs go to the
+    // warpgroup's staging (kEpiResidual reads its residual pair there
+    // first), then the warpgroup writes the 64 rows out in 16-byte stores.
 #pragma unroll
     for (int mh = 0; mh < 2; ++mh) {
-      int rows[2];
-      float keep[2];
-      uint32_t res[2][16];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        rows[h] = m0 + 64 * mh + 16 * warp + g + 8 * h;
-        keep[h] = p.pads && rows[h] < p.M ? 1.f - __bfloat162float(p.pads[rows[h]]) : 1.f;
-#pragma unroll
-        for (int jn = 0; jn < 16; ++jn) {
-          const int col = n0 + 8 * jn + c2;
-          res[h][jn] = p.epilogue == kEpiResidual && rows[h] < p.M && col < p.N
-                           ? ldg_u32(p.residual + static_cast<size_t>(rows[h]) * p.N + col)
-                           : 0u;
-        }
+      if constexpr (kEpi == kEpiResidual) {
+        if (mh > 0) fetch_residual(m0 + 64);
+        cp_async_wait<0>();
+        warpgroup_sync(3 + cw);
       }
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if (rows[h] >= p.M) continue;
-        bf16* out = p.out + static_cast<size_t>(rows[h]) * p.N;
+      for (int jn = 0; jn < 16; ++jn) {
+        const int col = n0 + 8 * jn + c2;
+        float2 b = make_float2(0.f, 0.f);
+        if constexpr (kBias && !kChain)
+          b = bf16x2_to_float2(*reinterpret_cast<const uint32_t*>(tile_bias + 8 * jn + c2));
 #pragma unroll
-        for (int jn = 0; jn < 16; ++jn) {
-          const int col = n0 + 8 * jn + c2;
-          if (col >= p.N) continue;
-          float v[2] = {acc[mh][4 * jn + 2 * h], acc[mh][4 * jn + 2 * h + 1]};
-          if (p.bias) {
-            const float2 b = bf16x2_to_float2(bias[jn]);
-            v[0] += b.x;
-            v[1] += b.y;
-          }
-          if (p.epilogue == kEpiQkv) {
-#pragma unroll
-            for (int e = 0; e < 2; ++e)
-              if (col + e < p.scaled_cols) v[e] *= p.col_scale;
-          } else if (p.epilogue == kEpiActKeep) {
-#pragma unroll
-            for (int e = 0; e < 2; ++e) v[e] = activate(v[e], p.act) * keep[h];
+        for (int h = 0; h < 2; ++h) {
+          uint32_t* at = reinterpret_cast<uint32_t*>(staging + staged(16 * warp + g + 8 * h, jn) +
+                                                     2 * c2);
+          if constexpr (kChain) {
+            *at = y[32 * mh + 2 * jn + h];
           } else {
-            const float2 r = bf16x2_to_float2(res[h][jn]);
-            v[0] = (p.pads ? v[0] * keep[h] : v[0]) + r.x;
-            v[1] = (p.pads ? v[1] * keep[h] : v[1]) + r.y;
+            float v[2] = {acc[mh][4 * jn + 2 * h], acc[mh][4 * jn + 2 * h + 1]};
+            const float bb[2] = {b.x, b.y};
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              if constexpr (kBias) v[e] = __fadd_rn(v[e], bb[e]);
+              if constexpr (kEpi == kEpiQkv) {
+                if (col + e < p.scaled_cols) v[e] = __fmul_rn(v[e], p.col_scale);
+              } else if constexpr (kEpi == kEpiActKeep) {
+                v[e] = activate<kAct>(v[e]);
+                if constexpr (kPads) v[e] = __fmul_rn(v[e], keep[mh][h]);
+              } else if constexpr (kPads) {
+                v[e] = __fmul_rn(v[e], keep[mh][h]);
+              }
+            }
+            if constexpr (kEpi == kEpiResidual) {
+              const float2 r = bf16x2_to_float2(*at);
+              v[0] = __fadd_rn(v[0], r.x);
+              v[1] = __fadd_rn(v[1], r.y);
+            }
+            *at = float2_to_bf16x2(v[0], v[1]);
           }
-          *reinterpret_cast<bf162*>(out + col) = __floats2bfloat162_rn(v[0], v[1]);
         }
       }
+      warpgroup_sync(3 + cw);  // every pair is staged
+      for (int idx = tid; idx < kWgRows * 16; idx += 128) {
+        const int r = idx / 16, u = idx % 16;
+        const int row = m0 + 64 * mh + r, col = n0 + 8 * u;
+        if (row < p.M && col < p.N)
+          *reinterpret_cast<uint4*>(p.out + static_cast<size_t>(row) * p.N + col) =
+              *reinterpret_cast<const uint4*>(staging + staged(r, u));
+      }
+      warpgroup_sync(3 + cw);  // the staging is free for the next rows
     }
   }
+}
+
+template <int kEpi, int kAct, bool kPads, bool kBias>
+cudaError_t launch(const CUtensorMap& map_a, const CUtensorMap& map_b, const Epi& p, int grid,
+                   cudaStream_t stream) {
+  cudaError_t err = set_max_dynamic_smem<gemm_bf16_kernel<kEpi, kAct, kPads, kBias>>(kSmem);
+  if (err != cudaSuccess) return err;
+  gemm_bf16_kernel<kEpi, kAct, kPads, kBias><<<grid, kThreads, kSmem, stream>>>(map_a, map_b, p);
+  return cudaGetLastError();
+}
+
+// The instantiation for the arguments: the epilogue, its activation
+// (kEpiActKeep: GELU or ReLU) and whether pads (not read by kEpiQkv) and
+// bias are given.
+template <int kEpi, int kAct>
+cudaError_t launch_with(const CUtensorMap& map_a, const CUtensorMap& map_b, const Epi& p,
+                        int grid, cudaStream_t stream) {
+  constexpr bool kReadsPads = kEpi != kEpiQkv;
+  if (kReadsPads && p.pads && p.bias)
+    return launch<kEpi, kAct, kReadsPads, true>(map_a, map_b, p, grid, stream);
+  if (kReadsPads && p.pads)
+    return launch<kEpi, kAct, kReadsPads, false>(map_a, map_b, p, grid, stream);
+  if (p.bias) return launch<kEpi, kAct, false, true>(map_a, map_b, p, grid, stream);
+  return launch<kEpi, kAct, false, false>(map_a, map_b, p, grid, stream);
 }
 
 }  // namespace
@@ -277,35 +424,48 @@ __global__ void __launch_bounds__(kThreads, 1)
 cudaError_t launch_gemm_bf16(const bf16* a, const bf16* b, const bf16* bias, const bf16* pads,
                              const bf16* residual, bf16* out, int M, int N, int K, int lda,
                              int epilogue, int activation, float col_scale, int scaled_cols,
-                             cudaStream_t stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || N % 8 || K % 8 || lda % 8 || lda < K ||
-      reinterpret_cast<uintptr_t>(a) % 16 || reinterpret_cast<uintptr_t>(b) % 16)
+                             int chunks, cudaStream_t stream) {
+  const bool residual_epi = epilogue == kEpiResidual || epilogue == kEpiChain;
+  if (M <= 0 || N <= 0 || K <= 0 || chunks < 1 || K % chunks || (K / chunks) % 8 || N % 8 ||
+      lda % 8 || lda < K || (chunks > 1 && epilogue != kEpiChain) || (residual_epi && !residual) ||
+      reinterpret_cast<uintptr_t>(a) % 16 || reinterpret_cast<uintptr_t>(b) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 16 || reinterpret_cast<uintptr_t>(residual) % 16)
     return cudaErrorInvalidValue;
+  const int kc = K / chunks;
   CUtensorMap map_a, map_b;
   constexpr auto kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  if (!tensor_map(&map_a, kBf16, a, K, M, 2L * lda, BK, BM) ||
-      !tensor_map(&map_b, kBf16, b, N, K, 2L * N, BK, BK))
+  if (!tensor_map3(&map_a, kBf16, a, kc, chunks, M, 2L * kc, 2L * lda, BK, BM) ||
+      !tensor_map3(&map_b, kBf16, b, N, kc, chunks, 2L * N, 2L * kc * N, 64, 1, BK))
     return cudaErrorInvalidValue;
-  cudaError_t err = set_max_dynamic_smem<gemm_bf16_kernel>(kSmem);
-  if (err != cudaSuccess) return err;
-  const Epi p{bias, pads, residual, out, M, N, K, epilogue, activation, col_scale, scaled_cols};
+  const Epi p{bias, pads, residual, out, M, N, chunks, kc, col_scale, scaled_cols};
   const long tiles = static_cast<long>((M + BM - 1) / BM) * ((N + BN - 1) / BN);
   const int grid = static_cast<int>(tiles < sm_count() ? tiles : sm_count());
-  gemm_bf16_kernel<<<grid, kThreads, kSmem, stream>>>(map_a, map_b, p);
-  return cudaGetLastError();
+  switch (epilogue) {
+    case kEpiQkv: return launch_with<kEpiQkv, kActNone>(map_a, map_b, p, grid, stream);
+    case kEpiActKeep:
+      if (activation == kActGelu)
+        return launch_with<kEpiActKeep, kActGelu>(map_a, map_b, p, grid, stream);
+      if (activation == kActRelu)
+        return launch_with<kEpiActKeep, kActRelu>(map_a, map_b, p, grid, stream);
+      return cudaErrorInvalidValue;
+    case kEpiResidual: return launch_with<kEpiResidual, kActNone>(map_a, map_b, p, grid, stream);
+    case kEpiChain: return launch_with<kEpiChain, kActNone>(map_a, map_b, p, grid, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace vp
 
-// The product stage alone, for measurement (chip_smoke.py [gemm]).
+// The product stage alone, for measurement and for composing the chained
+// blocks from separate launches (chip_smoke.py [gemm], [kernels]).
 extern "C" int vp_gemm_bf16(const void* a, const void* b, const void* bias, const void* pads,
                             const void* residual, void* out, int M, int N, int K, int lda,
                             int epilogue, int activation, float col_scale, int scaled_cols,
-                            void* stream) {
+                            int chunks, void* stream) {
   using vp::bf16;
   return vp::launch_gemm_bf16(
       static_cast<const bf16*>(a), static_cast<const bf16*>(b), static_cast<const bf16*>(bias),
       static_cast<const bf16*>(pads), static_cast<const bf16*>(residual), static_cast<bf16*>(out),
-      M, N, K, lda, epilogue, activation, col_scale, scaled_cols,
+      M, N, K, lda, epilogue, activation, col_scale, scaled_cols, chunks,
       static_cast<cudaStream_t>(stream));
 }

@@ -23,7 +23,10 @@
 //                        kI8Out   v [+ running fp32 sum] -> the sum, or
 //                                 ((v + bias) * keep) + residual -> bf16
 //                                 (bias, keep and residual each optional);
-//                        kI8Raw   the int32 sums themselves (measurement).
+//                        kI8Raw   the int32 sums themselves (measurement);
+//                        kI8ActQuant  kI8Act's a quantized per row over
+//                                 each output chunk -> int8 codes and
+//                                 fp32 scales (K9's W1, see below).
 //                      Every step is rounded on its own (__fmul_rn,
 //                      __fadd_rn): no contraction merges a scale into a
 //                      sum, so a product summed on chip and one summed
@@ -51,9 +54,10 @@
 //                      group in the prologue, the groups summed on chip;
 //                      K10: quant_rows_kernel per group, then kTmaA per
 //                      group, chained
-//   a = act(h @ W1)    K11: kQuantA kI8Act, LN2 + quantize in the prologue;
-//                      K9: quant_rows_kernel, then kTmaA -> a fp32 [rows, F]
-//   quantize a         quant_rows_f32_kernel per F-chunk -> a8, as
+//   a = act(h @ W1)    K11: kQuantA kI8Act, LN2 + quantize in the prologue
+//                      -> a fp32 [rows, F]; K9: quant_rows_kernel, then
+//                      kTmaA kI8ActQuant -> a8, as (a stays on chip)
+//   quantize a         K11: quant_rows_f32_kernel per F-chunk -> a8, as
 //   out = a @ W2       K11: kTmaA (one chunk) or kTmaASum (the chunks summed
 //                      on chip); K9: kTmaA per chunk, chained
 // Chained blocks (K9, K10) cast the running output to bf16 after every
@@ -113,6 +117,22 @@
 // warps run while its tensor cores wait, is what the fused kernel pays for
 // the round trip it saves: the chains (K9, K10) keep the standalone
 // quantizer, which spreads the rows over every SM (first_product).
+// kI8ActQuant (K9's W1, kTmaA's 128 x 128 tiles): a row's scale is the
+// absmax over an F-chunk's columns, which 24 tiles of the same 128 rows
+// compute on as many SMs (a band, at a chunk of 3072).  The tiles walk
+// band after band; each tile keeps its fp32 activation in its accumulator
+// registers, reduces its rows' absmax over its columns (two shuffles
+// across the four lanes of a row), and one lane per row meets the band's
+// other tiles in row_max [rows, chunks] in device memory (L2) by
+// atomicMax on the value's bits; a counter per band, raised after a
+// release fence, tells a tile when its band is met, and its warpgroup
+// waits for it while the block's other warpgroup multiplies the next
+// tile.  Then the tile forms its codes from the registers and writes them
+// in 16-byte stores: the fp32 activation that kI8Act wrote and
+// quant_rows_f32_kernel read back (0.4 GB at 32768 rows) never leaves the
+// chip.  The launch is cooperative (see gemm() for why it cannot
+// deadlock), and the LN'd quantizer in front zeroes row_max and the
+// counters.
 // kQuantAWide (K12a): 128 rows a block, walked in 128 x 128 tiles as kTmaA
 // walks them (ping-pong, two m64 products per B stage), so each weight
 // byte out of L2 feeds twice the rows; its codes take 96 KB at K = 768,
@@ -126,11 +146,11 @@
 // Design of the standalone quantizer: K6's row kernel (ln_rows.cu).  One
 // warp per (row, chunk); a bf16 row of up to 2048 values is held in
 // registers from one read in 16-byte loads, and the LN statistics, the
-// absmax and the codes (eight per 8-byte store) all come from them.  K9's
-// and K11's fp32 hidden activation (3072 values per row chunk at base and
-// giant widths) is held across a block of 128 threads instead, also from
-// one read in 16-byte loads: its codes for 64 rows x F = 3072 would not
-// fit in shared memory beside a B ring, so W2 reads them by TMA.
+// absmax and the codes (eight per 8-byte store) all come from them.  K11's
+// fp32 hidden activation (3072 values per row chunk at base and giant
+// widths) is held across a block of 128 threads instead, also from one
+// read in 16-byte loads: its codes for 64 rows x F = 3072 would not fit in
+// shared memory beside a B ring, so W2 reads them by TMA.
 #include <algorithm>
 
 #include "tma_wgmma.cuh"
@@ -154,10 +174,20 @@ __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ uint32_t code_word(float v, float inv_s) {
   return __float_as_uint(__fadd_rn(__fmul_rn(v, inv_s), 12582912.f));
 }
-// Four codes packed in a word, the first in the low byte.
+// Two codes packed in the low half-word, four in a word, the first in the
+// low byte.
+__device__ __forceinline__ uint32_t code2(float a, float b, float inv_s) {
+  return __byte_perm(code_word(a, inv_s), code_word(b, inv_s), 0x40);
+}
 __device__ __forceinline__ uint32_t code4(float a, float b, float c, float d, float inv_s) {
-  return __byte_perm(__byte_perm(code_word(a, inv_s), code_word(b, inv_s), 0x40),
-                     __byte_perm(code_word(c, inv_s), code_word(d, inv_s), 0x40), 0x5410);
+  return __byte_perm(code2(a, b, inv_s), code2(c, d, inv_s), 0x5410);
+}
+// A row's scale from its absmax m (NaN-free, >= 0), and its inverse: every
+// quantizer and kI8ActQuant's epilogue take the same expression.
+__device__ __forceinline__ float row_scale(float m, float& inv_s) {
+  const float s = fmaxf(m * kInv127, 1e-12f);
+  inv_s = 1.0f / s;
+  return s;
 }
 
 // The fp32 LN of one value, each operation rounded on its own; g1 is the
@@ -169,7 +199,8 @@ __device__ __forceinline__ float ln_value(float v, float mean, float inv, float 
 // x [rows, chunks * cols] (row pitch ldx) -> q [rows, chunks * cols] (pitch
 // ldq), scale [rows, chunks].  With ln_scale (chunks = 1) the quantized
 // value is the fp32 LayerNorm of the row, (x - mean) * rsqrt(var + eps) *
-// (scale + 1) + bias.
+// (scale + 1) + bias.  With sync (K9's front, see BandSync), the kernel
+// also zeroes the next product's row maxima of its rows and band counters.
 struct QuantRows {
   const void* x;
   const bf16* ln_scale;
@@ -178,7 +209,18 @@ struct QuantRows {
   float* scale;
   int ldx, ldq, rows, cols, chunks;
   float eps;
+  float* row_max;         // [rows, sync_chunks] or null
+  unsigned* band_count;   // [ceil(rows / 128), sync_chunks]
+  int sync_chunks;        // at most 32
 };
+
+// Zeroes what kI8ActQuant meets its row maxima in for row `row` (lane l
+// takes chunk l; the band counters with the first row of a 128-row block).
+__device__ __forceinline__ void zero_sync(const QuantRows& p, int row, int lane) {
+  if (!p.row_max || lane >= p.sync_chunks) return;
+  p.row_max[static_cast<size_t>(row) * p.sync_chunks + lane] = 0.f;
+  if (row % 128 == 0) p.band_count[static_cast<size_t>(row / 128) * p.sync_chunks + lane] = 0u;
+}
 
 // Lane l's 16-byte chunks l, l + 32, .. of a bf16 row of n8 such chunks.
 template <int J>
@@ -243,8 +285,8 @@ __device__ __forceinline__ float quant_row(const uint4 (&xv)[J], int n8, int lan
 #pragma unroll
       for (int e = 0; e < 8; ++e) m = fmaxf(m, fabsf(f[j][e]));
   m = warp_max(m);
-  const float s = fmaxf(m * kInv127, 1e-12f);
-  const float inv_s = 1.0f / s;
+  float inv_s;
+  const float s = row_scale(m, inv_s);
 #pragma unroll
   for (int j = 0; j < J; ++j) {
     const int i = lane + 32 * j;
@@ -278,9 +320,10 @@ __global__ void quant_rows_kernel(const __grid_constant__ QuantRows p) {
       },
       p.eps, [&](int i, uint2 codes) { reinterpret_cast<uint2*>(qr)[i] = codes; });
   if (lane == 0) p.scale[static_cast<size_t>(row) * p.chunks + c] = s;
+  zero_sync(p, row, lane);
 }
 
-// K9's fp32 hidden activation (up to 4096 values per row chunk, more than
+// K11's fp32 hidden activation (up to 4096 values per row chunk, more than
 // a warp's registers hold): one block of 128 threads per (row, chunk),
 // thread t keeping the chunk's float4s t, t + 128, .. in registers, so the
 // chunk is read from device memory once, in 16-byte loads; the absmax is
@@ -313,8 +356,8 @@ __global__ void __launch_bounds__(kF32Threads)
   if (threadIdx.x % 32 == 0) warp_max_of[threadIdx.x / 32] = m;
   __syncthreads();
   m = fmaxf(fmaxf(warp_max_of[0], warp_max_of[1]), fmaxf(warp_max_of[2], warp_max_of[3]));
-  const float s = fmaxf(m * kInv127, 1e-12f);
-  const float inv_s = 1.0f / s;
+  float inv_s;
+  const float s = row_scale(m, inv_s);
 #pragma unroll
   for (int j = 0; j < V; ++j) {
     const int i = threadIdx.x + kF32Threads * j;
@@ -358,18 +401,38 @@ __global__ void quant_rows_stream_kernel(const __grid_constant__ QuantRows p) {
   float m = 0.f;
   for (int i = lane; i < p.cols; i += 32) m = fmaxf(m, fabsf(value(i)));
   m = warp_max(m);
-  const float s = fmaxf(m * kInv127, 1e-12f);
-  const float inv_s = 1.0f / s;
+  float inv_s;
+  const float s = row_scale(m, inv_s);
   for (int i = lane; i < p.cols; i += 32)
     qr[i] = static_cast<int8_t>(code_word(value(i), inv_s) & 0xFFu);
   if (lane == 0) p.scale[static_cast<size_t>(row) * p.chunks + c] = s;
+  zero_sync(p, row, lane);
+}
+
+// The BandSync of K9's W1 (kI8ActQuant), whose row maxima and band
+// counters the LN'd quantizer in front zeroes: row_max [rows, chunks] fp32
+// and band_count [ceil(rows / 128), chunks] in one buffer of (rows +
+// ceil(rows / 128)) * chunks 32-bit words.
+struct BandSync {
+  float* row_max;
+  unsigned* band_count;
+  int chunks;
+};
+inline BandSync band_sync(void* buf, int rows, int chunks) {
+  float* row_max = static_cast<float*>(buf);
+  return {row_max, reinterpret_cast<unsigned*>(row_max + static_cast<size_t>(rows) * chunks),
+          chunks};
 }
 
 template <typename T>
 cudaError_t quant(const T* x, int ldx, const bf16* ln_scale, const bf16* ln_bias, float eps,
                   int8_t* q, int ldq, float* scale, int rows, int cols, int chunks,
-                  cudaStream_t stream) {
-  const QuantRows p{x, ln_scale, ln_bias, q, scale, ldx, ldq, rows, cols, chunks, eps};
+                  cudaStream_t stream, BandSync sync = {}) {
+  if (sync.row_max && (chunks != 1 || sync.chunks < 1 || sync.chunks > 32))
+    return cudaErrorInvalidValue;
+  const QuantRows p{x,    ln_scale, ln_bias, q,   scale,        ldx,
+                    ldq,  rows,     cols,    chunks, eps,         sync.row_max,
+                    sync.band_count, sync.chunks};
   const long warps_total = static_cast<long>(rows) * chunks;
   const int warps = row_warps(warps_total);
   const int blocks = static_cast<int>((warps_total + warps - 1) / warps);
@@ -409,7 +472,7 @@ cudaError_t quant(const T* x, int ldx, const bf16* ln_scale, const bf16* ln_bias
   return cudaGetLastError();
 }
 
-enum I8Epilogue : int { kI8Proj = 0, kI8Act = 1, kI8Out = 2, kI8Raw = 3 };
+enum I8Epilogue : int { kI8Proj = 0, kI8Act = 1, kI8Out = 2, kI8Raw = 3, kI8ActQuant = 4 };
 enum I8Mode : int { kTmaA = 0, kTmaASum = 1, kQuantA = 2, kQuantAWide = 3 };
 
 struct I8Epi {
@@ -433,6 +496,12 @@ struct I8Epi {
   int chunks, kc;         // K = chunks * kc, each chunk with its own row scales
   int wide;               // with x: 128-row blocks where they pay (kQuantAWide)
   int stages, groups;     // set by gemm(): ring depth; the quantizing modes' N-groups
+  // kI8ActQuant: the output's qchunks column chunks of qkc, each quantized
+  // per row into out (int8 codes, pitch ldo) and code_scale [M, qchunks],
+  // the rows' maxima met in sync (zeroed before the launch).
+  float* code_scale;
+  BandSync sync;
+  int qkc;
 };
 
 constexpr int BN = 128;                // output tile width
@@ -458,14 +527,14 @@ __host__ __device__ constexpr int block_rows(int mode) {
 __host__ __device__ constexpr int stage_bytes(int mode) {
   return (quantizes(mode) ? 0 : tile_rows(mode) * BK) + BN * BK;
 }
-// Bytes of one output element in the staging: the bf16 outputs are staged
-// (kI8Proj, kI8Out); kI8Act's fp32 and the int32 sums go out directly
-// (kI8Act's staging would take 64 KB of the B ring).  A staged row's pitch
-// is 128 columns and 16 bytes, so that the accumulator layout's pair
-// stores (eight rows by four column pairs a warp) fall in 32 different
-// banks.
+// Bytes of one output element in the staging: the bf16 outputs (kI8Proj,
+// kI8Out) and kI8ActQuant's codes are staged; kI8Act's fp32 and the int32
+// sums go out directly (kI8Act's staging would take 64 KB of the B ring).
+// A staged row's pitch is 128 columns and 16 bytes, so that the
+// accumulator layout's pair stores (eight rows by four column pairs a
+// warp) fall in different banks.
 __host__ __device__ constexpr int out_bytes(int epilogue) {
-  return epilogue == kI8Proj || epilogue == kI8Out ? 2 : 0;
+  return epilogue == kI8Proj || epilogue == kI8Out ? 2 : epilogue == kI8ActQuant ? 1 : 0;
 }
 __host__ __device__ constexpr int out_pitch(int epilogue) {
   return BN * out_bytes(epilogue) + 16;
@@ -536,6 +605,31 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t desc_
 // Named barrier `id` over one consumer warpgroup (128 threads).
 __device__ __forceinline__ void warpgroup_sync(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// kI8ActQuant's meeting of a band's tiles in device memory (L2), run by one
+// thread of a warpgroup after a barrier over it: the warpgroup's row-max
+// atomics are released to the device, the band's counter raised with
+// release semantics, and the thread spins with acquire loads until all
+// `tiles` of the band have raised it; like mbar_wait it traps (a launch
+// error, not a hung card) after ~10 s.
+__device__ __forceinline__ void band_arrive_and_wait(unsigned* count, int tiles) {
+  asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+  asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(count) : "memory");
+  const long long start = clock64();
+  for (;;) {
+    unsigned seen;
+    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(seen) : "l"(count) : "memory");
+    if (seen >= static_cast<unsigned>(tiles)) break;
+    if (clock64() - start > 20000000000LL) __trap();
+    __nanosleep(64);
+  }
+}
+// A value other blocks wrote before the band's meeting, read from L2.
+__device__ __forceinline__ float ld_relaxed(const float* p) {
+  float v;
+  asm volatile("ld.relaxed.gpu.global.f32 %0, [%1];\n" : "=f"(v) : "l"(p) : "memory");
+  return v;
 }
 
 __device__ __forceinline__ float activate(float v, int act) {
@@ -685,7 +779,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   const int S = p.stages, ktc = (p.kc + BK - 1) / BK, KT = p.chunks * ktc;
-  const int tiles_n = (p.N + BN - 1) / BN;
+  // kI8ActQuant walks each row block's output chunks, band_tiles N tiles a
+  // chunk (the last may run past the chunk's columns: masked); with chunks
+  // of whole tiles that is the plain tile order.
+  constexpr bool kActQuant = kEpi == kI8ActQuant;
+  const int band_tiles = kActQuant ? (p.qkc + BN - 1) / BN : 1;
+  const int tiles_n = kActQuant ? p.sync.chunks * band_tiles : (p.N + BN - 1) / BN;
   const int per_group = (tiles_n + p.groups - 1) / p.groups;  // the quantizing modes
   const int ln_cols = kQuant && p.ln_scale ? p.K : 0;
   const SmemLayout L = smem_layout(kMode, kEpi, S, p.chunks, ktc, per_group, ln_cols);
@@ -716,9 +815,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       m0 = m_first;
       n0 = (n_first + i) * BN;
     } else {
-      const int tile = blockIdx.x + i * gridDim.x;
+      const int tile = blockIdx.x + i * gridDim.x, nn = tile % tiles_n;
       m0 = tile / tiles_n * TR;
-      n0 = tile % tiles_n * BN;
+      n0 = kActQuant ? nn / band_tiles * p.qkc + nn % band_tiles * BN : nn * BN;
     }
   };
   // The producer's steps from..to - 1 of the block's walk (tile, chunk,
@@ -911,6 +1010,102 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
 
+    // kI8ActQuant: a = act(v + b1) * keep in fp32 (kI8Act's bits) stays in
+    // registers; each row's absmax over the tile's columns of its chunk goes
+    // to row_max by atomicMax on its bits (exact for values >= 0, and a max
+    // does not depend on the order), one lane per row; then the band's
+    // counter is raised and the warpgroup waits until every tile of the
+    // band has raised it, meanwhile the other warpgroup multiplies.  The
+    // codes and scales are then those quant_rows_f32_kernel takes from the
+    // fp32 a (row_scale, code2), written through the staging in 16-byte
+    // stores; the chunk's first N tile writes the rows' scales.
+    if constexpr (kActQuant) {
+      const int tid = threadIdx.x % 128;
+      const int tile = blockIdx.x + i * gridDim.x, nn = tile % tiles_n;
+      const int chunk = nn / band_tiles, band = tile / band_tiles;
+      const int cend = (chunk + 1) * p.qkc;  // the chunk's columns end here
+      const int qchunks = p.sync.chunks;
+      float inv_s[2][2];
+      // a replaces the products in acc's own registers (as fp32 bits), 64
+      // rows at a time: the tile's 128 values a thread are all it holds
+      // across the band's wait.
+#pragma unroll
+      for (int mh = 0; mh < 2; ++mh) {
+        float rs[2], keep[2], m[2] = {0.f, 0.f};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0 + 64 * mh + 16 * warp + g + 8 * h;
+          const bool ok = row < p.M;
+          keep[h] = ok && p.pads ? 1.f - __bfloat162float(p.pads[row]) : 1.f;
+          rs[h] = ok ? __ldg(p.a_scale + static_cast<size_t>(row) * p.as_ld) : 0.f;
+        }
+#pragma unroll
+        for (int jn = 0; jn < 16; ++jn) {
+          const bool in_chunk = n0 + 8 * jn + c2 < cend;  // the pair lies in one chunk
+          const float2 cs = *reinterpret_cast<const float2*>(tile_cs + 8 * jn + c2);
+          const float2 b =
+              bf16x2_to_float2(*reinterpret_cast<const uint32_t*>(tile_bias + 8 * jn + c2));
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int e0 = 4 * jn + 2 * h;
+            const float a0 = __fmul_rn(
+                activate(__fadd_rn(scaled(acc[mh][e0], rs[h], cs.x), b.x), kAct), keep[h]);
+            const float a1 = __fmul_rn(
+                activate(__fadd_rn(scaled(acc[mh][e0 + 1], rs[h], cs.y), b.y), kAct), keep[h]);
+            acc[mh][e0] = __float_as_int(a0);
+            acc[mh][e0 + 1] = __float_as_int(a1);
+            if (in_chunk) m[h] = fmaxf(m[h], fmaxf(fabsf(a0), fabsf(a1)));
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0 + 64 * mh + 16 * warp + g + 8 * h;
+          float mm = m[h];
+          mm = fmaxf(mm, __shfl_xor_sync(0xffffffffu, mm, 1));
+          mm = fmaxf(mm, __shfl_xor_sync(0xffffffffu, mm, 2));
+          if (lane % 4 == 0 && row < p.M)
+            atomicMax(reinterpret_cast<int*>(p.sync.row_max) +
+                          static_cast<size_t>(row) * qchunks + chunk,
+                      __float_as_int(mm));
+        }
+      }
+      warpgroup_sync(3 + cw);  // the warpgroup's maxima are in
+      if (tid == 0) band_arrive_and_wait(p.sync.band_count + band, band_tiles);
+      warpgroup_sync(3 + cw);
+#pragma unroll
+      for (int mh = 0; mh < 2; ++mh)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0 + 64 * mh + 16 * warp + g + 8 * h;
+          inv_s[mh][h] = 0.f;
+          if (row >= p.M) continue;
+          const size_t at = static_cast<size_t>(row) * qchunks + chunk;
+          const float s = row_scale(ld_relaxed(p.sync.row_max + at), inv_s[mh][h]);
+          if (nn % band_tiles == 0 && lane % 4 == 0) p.code_scale[at] = s;
+        }
+#pragma unroll
+      for (int mh = 0; mh < 2; ++mh) {
+#pragma unroll
+        for (int jn = 0; jn < 16; ++jn)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<uint16_t*>(staging + (16 * warp + g + 8 * h) * kPitch + 8 * jn + c2) =
+                static_cast<uint16_t>(code2(__int_as_float(acc[mh][4 * jn + 2 * h]),
+                                            __int_as_float(acc[mh][4 * jn + 2 * h + 1]),
+                                            inv_s[mh][h]));
+        warpgroup_sync(3 + cw);  // every pair is staged
+        for (int idx = tid; idx < kWgRows * 8; idx += 128) {
+          const int r = idx / 8, u = idx % 8, row = m0 + 64 * mh + r, col = n0 + 16 * u;
+          if (row < p.M && col < cend)
+            *reinterpret_cast<uint4*>(static_cast<int8_t*>(p.out) +
+                                      static_cast<size_t>(row) * p.ldo + col) =
+                *reinterpret_cast<const uint4*>(staging + r * kPitch + 16 * u);
+        }
+        warpgroup_sync(3 + cw);  // the staging is free for the next rows
+      }
+      continue;
+    }
+
     // The epilogue, 64 rows at a time: each thread's bf16 pairs go to the
     // warpgroup's staging (with the residual read from there), then the
     // warpgroup writes the 64 rows out in 16-byte stores, whole rows at a
@@ -1003,12 +1198,30 @@ I8Epi epi(const float* a_scale, int as_ld, const float* b_scale, int M, int N, i
   return p;
 }
 
+// kI8ActQuant's tiles wait for their bands' other tiles, so its launch is
+// cooperative: it fails, where it would otherwise hang, unless every block
+// is resident at once.
 template <int kEpi, int kAct, int kMode>
 cudaError_t launch_i8(const CUtensorMap& map_a, const CUtensorMap& map_b, const I8Epi& p,
                       int grid, int smem, cudaStream_t stream) {
   cudaError_t err = set_max_dynamic_smem<gemm_i8_kernel<kEpi, kAct, kMode>>(kSmemMax);
   if (err != cudaSuccess) return err;
-  gemm_i8_kernel<kEpi, kAct, kMode><<<grid, kThreads, smem, stream>>>(map_a, map_b, p);
+  if constexpr (kEpi == kI8ActQuant) {
+    cudaLaunchAttribute cooperative[1];
+    cooperative[0].id = cudaLaunchAttributeCooperative;
+    cooperative[0].val.cooperative = 1;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(grid);
+    config.blockDim = dim3(kThreads);
+    config.dynamicSmemBytes = smem;
+    config.stream = stream;
+    config.attrs = cooperative;
+    config.numAttrs = 1;
+    err = cudaLaunchKernelEx(&config, gemm_i8_kernel<kEpi, kAct, kMode>, map_a, map_b, p);
+    if (err != cudaSuccess) return err;
+  } else {
+    gemm_i8_kernel<kEpi, kAct, kMode><<<grid, kThreads, smem, stream>>>(map_a, map_b, p);
+  }
   return cudaGetLastError();
 }
 
@@ -1047,27 +1260,46 @@ LaunchShape launch_shape(int mode, const I8Epi& p, int ktc, int tiles_n) {
   return l;
 }
 
+// kI8ActQuant's tiles of one band (128 rows by one output chunk).
+inline int act_quant_band_tiles(const I8Epi& p) { return (p.qkc + BN - 1) / BN; }
+
 // out = epilogue(A [M, K] @ b [N, K]^T (row pitch ldb)), K cut into
 // p.chunks chunks of p.kc.  A is quantized in the kernel from p.x when it
 // is set (kQuantA; kQuantAWide where p.wide asks for it, K is one chunk,
 // the 128-row blocks take one N-group and their codes fit beside
 // kMinStagesWide stages: a shape rule), else it is the codes a (row pitch
 // lda), read by TMA (kTmaA for one chunk, kTmaASum for more).
+// kI8ActQuant (kTmaA, one K-chunk) needs two shape rules for its band
+// meeting not to deadlock: every block resident at once (the cooperative
+// launch) and 2 G > T, G the grid and T a band's tiles.  A block whose
+// oldest unfinished tile is t0 (global tile indices) raises the counters
+// of t0 and of t0 + G: t0 + G multiplies as soon as t0 has (its stages
+// and its turn follow t0's, and its warpgroup's previous tile t0 - G is
+// done).  Take the lowest band not yet met, tiles [bT, (b+1)T): every
+// block's t0 lies in it or later, so every tile of the band lies below
+// its block's t0 + 2G (bT + 2G > (b+1)T - 1) and has raised its counter,
+// and the band is met.
 cudaError_t gemm(I8Epi p, const int8_t* a, int lda, const int8_t* b, int ldb,
                  cudaStream_t stream) {
   const int ktc = (p.kc + BK - 1) / BK;
   int mode = p.x ? kQuantA : p.chunks > 1 ? kTmaASum : kTmaA;
+  const bool act_quant = p.epilogue == kI8ActQuant;
   if (p.M <= 0 || p.N <= 0 || p.chunks < 1 || p.kc <= 0 || p.kc % 16 ||
       p.K != p.chunks * p.kc || p.N % 8 || ldb % 16 || ldb < p.K || !aligned16(b) ||
-      (p.epilogue != kI8Raw && !aligned16(p.out)) || (p.resid && !aligned16(p.resid)))
+      (p.epilogue != kI8Raw && !aligned16(p.out)) || (p.resid && !aligned16(p.resid)) ||
+      (act_quant && (mode != kTmaA || !p.sync.row_max || !p.code_scale || p.sync.chunks < 1 ||
+                     p.sync.chunks > 32 || p.qkc % 16 || p.qkc * p.sync.chunks != p.N ||
+                     p.ldo % 16)))
     return cudaErrorInvalidValue;
   if (p.x ? p.ldx % 8 || p.ldx < p.K || !aligned16(p.x) || row_chunks(p.kc) > kPrologueChunks ||
                 (p.ln_scale &&
                  (p.chunks != 1 || !aligned16(p.ln_scale) || !aligned16(p.ln_bias)))
           : lda % 16 || lda < p.K || !aligned16(a))
     return cudaErrorInvalidValue;
-  const int tiles_n = (p.N + BN - 1) / BN;
+  const int tiles_n =
+      act_quant ? p.sync.chunks * act_quant_band_tiles(p) : (p.N + BN - 1) / BN;
   LaunchShape l = launch_shape(mode, p, ktc, tiles_n);
+  if (act_quant && 2 * l.grid <= act_quant_band_tiles(p)) return cudaErrorInvalidValue;
   if (p.x && p.wide && p.chunks == 1) {
     const LaunchShape w = launch_shape(kQuantAWide, p, ktc, tiles_n);
     if (w.groups == 1 && w.stages >= kMinStagesWide && w.smem <= kSmemMax) {
@@ -1097,6 +1329,10 @@ cudaError_t gemm(I8Epi p, const int8_t* a, int lda, const int8_t* b, int ldb,
           VP_LAUNCH(kI8Act, kActNone, kTmaA);
         case kI8Out: VP_LAUNCH(kI8Out, kActNone, kTmaA);
         case kI8Raw: VP_LAUNCH(kI8Raw, kActNone, kTmaA);
+        case kI8ActQuant:
+          if (p.activation == kActGelu) VP_LAUNCH(kI8ActQuant, kActGelu, kTmaA);
+          if (p.activation == kActRelu) VP_LAUNCH(kI8ActQuant, kActRelu, kTmaA);
+          return cudaErrorInvalidValue;
         default: return cudaErrorInvalidValue;
       }
     case kTmaASum:
@@ -1126,7 +1362,7 @@ cudaError_t gemm(I8Epi p, const int8_t* a, int lda, const int8_t* b, int ldb,
 // the product's prologue (p.x; K11, whose six launches are the point, and
 // K12a's one, in 128-row blocks where they pay), or, where the caller
 // gives scratch h8 [rows, d] / hs [rows], by quant_rows_kernel into h8 /
-// hs, read by TMA (the chains K9 and K10, which keep their launches): the
+// hs, read by TMA (K10's chain, and K9's by quantized_hidden): the
 // standalone quantizer spreads the rows over every SM, where a block's
 // prologue quantizes its 64 rows on one SM, again in every N-group, while
 // its tensor cores wait.
@@ -1183,18 +1419,43 @@ cudaError_t quantized_out(const bf16* x, int chunks, int kc, const int8_t* w, co
   return gemm(p, nullptr, 0, w, chunks * kc, st);
 }
 
-// a = act(LN(x) quantized @ W1 + b1) * keep in fp32 [rows, f]
-// (first_product; W1 K-major [f, d]).
+// K11's W1: a = act(LN(x) quantized in the prologue @ W1 + b1) * keep in
+// fp32 [rows, f] (first_product; W1 K-major [f, d]).
 cudaError_t hidden_activation(const bf16* x, const bf16* pads, const bf16* ln_s,
                               const bf16* ln_b, const int8_t* w1, const float* s1,
-                              const bf16* b1, int8_t* h8, float* hs, float* a, int rows, int d,
-                              int f, int activation, float eps, cudaStream_t st) {
+                              const bf16* b1, float* a, int rows, int d, int f, int activation,
+                              float eps, cudaStream_t st) {
   I8Epi p = epi(nullptr, 0, s1, rows, f, d, kI8Act);
   p.bias = b1;
   p.pads = pads;
   p.out = a;
   p.activation = activation;
-  return first_product(p, x, ln_s, ln_b, eps, h8, hs, w1, st);
+  return first_product(p, x, ln_s, ln_b, eps, nullptr, nullptr, w1, st);
+}
+
+// K9's W1: the LN'd x quantized into h8 / hs by quant_rows_kernel, which
+// also zeroes the band meeting (sync, band_sync's layout), then a =
+// act(h8 @ W1 + b1) * keep quantized per F-chunk in the product's epilogue
+// (kI8ActQuant) -> a8 [rows, f], as [rows, chunks]: the fp32 a never
+// leaves the chip.
+cudaError_t quantized_hidden(const bf16* x, const bf16* pads, const bf16* ln_s,
+                             const bf16* ln_b, const int8_t* w1, const float* s1,
+                             const bf16* b1, int8_t* h8, float* hs, void* sync, int8_t* a8,
+                             float* as, int rows, int d, int f, int chunks, int activation,
+                             float eps, cudaStream_t st) {
+  if (chunks < 1 || f % chunks) return cudaErrorInvalidValue;
+  const BandSync meet = band_sync(sync, rows, chunks);
+  cudaError_t err = quant(x, d, ln_s, ln_b, eps, h8, d, hs, rows, d, 1, st, meet);
+  if (err != cudaSuccess) return err;
+  I8Epi p = epi(hs, 1, s1, rows, f, d, kI8ActQuant);
+  p.bias = b1;
+  p.pads = pads;
+  p.out = a8;
+  p.activation = activation;
+  p.code_scale = as;
+  p.sync = meet;
+  p.qkc = f / chunks;
+  return gemm(p, h8, d, w1, d, st);
 }
 
 // The last product over `chunks` K-slices of a8 [rows, chunks * kc] (row
@@ -1235,21 +1496,21 @@ cudaError_t last_product(const int8_t* a8, const float* as, int chunks, int kc, 
   return cudaSuccess;
 }
 
-// The FFN half from x: a = act(LN(x) @ W1 + b1) * keep in fp32 over all F
-// columns, a quantized per F-chunk, the output product (W2 K-major [d,
-// f]; sum or chain, see last_product).
+// K11's FFN half from x: a = act(LN(x) @ W1 + b1) * keep in fp32 over all
+// F columns, a quantized per F-chunk, the output product summed on chip
+// (W2 K-major [d, f]; see last_product).
 cudaError_t ffn_half(const bf16* x, const bf16* pads, const bf16* ln_s, const bf16* ln_b,
                      const int8_t* w1, const float* s1, const bf16* b1, const int8_t* w2,
-                     const float* s2, const bf16* b2, int8_t* h8, float* hs, float* a,
-                     int8_t* a8, float* as, bf16* tmp, bf16* out, int rows, int d, int f,
-                     int chunks, bool sum, int activation, float eps, cudaStream_t st) {
-  cudaError_t err = hidden_activation(x, pads, ln_s, ln_b, w1, s1, b1, h8, hs, a, rows, d, f,
-                                      activation, eps, st);
+                     const float* s2, const bf16* b2, float* a, int8_t* a8, float* as, bf16* out,
+                     int rows, int d, int f, int chunks, int activation, float eps,
+                     cudaStream_t st) {
+  cudaError_t err =
+      hidden_activation(x, pads, ln_s, ln_b, w1, s1, b1, a, rows, d, f, activation, eps, st);
   if (err == cudaSuccess)
     err = quant(a, f, nullptr, nullptr, 0.f, a8, f, as, rows, f / chunks, chunks, st);
   if (err == cudaSuccess)
-    err = last_product(a8, as, chunks, f / chunks, w2, s2, b2, pads, x, tmp, out, rows, d, sum,
-                       st);
+    err = last_product(a8, as, chunks, f / chunks, w2, s2, b2, pads, x, nullptr, out, rows, d,
+                       true, st);
   return err;
 }
 
@@ -1295,20 +1556,28 @@ using vp::bf16;
 // Weights are K-major throughout (see the top of this file).
 
 // K9: x [rows, d] bf16 -> out; chunks F-slices chained with a cast after
-// each; w1 [f, d], w2 [d, f].  Scratch: h8 [rows, d] i8, hs [rows] f32 (see
-// first_product), a [rows, f] f32, a8 [rows, f] i8, as [rows, chunks] f32,
-// tmp [rows, d] bf16 (chunks > 1).
+// each; w1 [f, d], w2 [d, f].  Three device kernels and one per F-slice:
+// the LN'd quantizer, W1 quantizing its hidden activation per F-chunk in
+// its epilogue (quantized_hidden), W2 per slice (last_product's chain).
+// Scratch: h8 [rows, d] i8, hs [rows] f32, sync (band_sync's layout), a8
+// [rows, f] i8, as [rows, chunks] f32, tmp [rows, d] bf16 (chunks > 1).
 int vp_int8_ffn_block(const void* x, const void* pads, const void* ln_s, const void* ln_b,
                       const void* w1, const void* s1, const void* b1, const void* w2,
-                      const void* s2, const void* b2, void* h8, void* hs, void* a, void* a8,
+                      const void* s2, const void* b2, void* h8, void* hs, void* sync, void* a8,
                       void* as, void* tmp, void* out, int rows, int d, int f, int chunks,
                       int activation, float eps, void* stream) {
-  return vp::ffn_half(VP_B(x), VP_B(pads), VP_B(ln_s), VP_B(ln_b), VP_I8(w1), VP_F(s1), VP_B(b1),
-                      VP_I8(w2), VP_F(s2), VP_B(b2), static_cast<int8_t*>(h8),
-                      static_cast<float*>(hs), static_cast<float*>(a),
-                      static_cast<int8_t*>(a8), static_cast<float*>(as), static_cast<bf16*>(tmp),
-                      static_cast<bf16*>(out), rows, d, f, chunks, false, activation, eps,
-                      static_cast<cudaStream_t>(stream));
+  auto st = static_cast<cudaStream_t>(stream);
+  auto* a8p = static_cast<int8_t*>(a8);
+  auto* asp = static_cast<float*>(as);
+  cudaError_t err = vp::quantized_hidden(VP_B(x), VP_B(pads), VP_B(ln_s), VP_B(ln_b), VP_I8(w1),
+                                         VP_F(s1), VP_B(b1), static_cast<int8_t*>(h8),
+                                         static_cast<float*>(hs), sync, a8p, asp, rows, d, f,
+                                         chunks, activation, eps, st);
+  if (err == cudaSuccess)
+    err = vp::last_product(a8p, asp, chunks, f / chunks, VP_I8(w2), VP_F(s2), VP_B(b2),
+                           VP_B(pads), VP_B(x), static_cast<bf16*>(tmp), static_cast<bf16*>(out),
+                           rows, d, false, st);
+  return err;
 }
 
 // K10: x [batch, t, d] -> out; chunks head groups chained with a cast
@@ -1378,9 +1647,8 @@ int vp_int8_layer_block(const void* x, const void* mask, const void* pads, const
                             nullptr, VP_B(x), s.x1, rows, d, st);
   if (err == cudaSuccess)
     err = vp::ffn_half(s.x1, VP_B(pads), VP_B(ln2_s), VP_B(ln2_b), VP_I8(w1), VP_F(s1),
-                       VP_B(b1), VP_I8(w2), VP_F(s2), VP_B(b2), nullptr, nullptr, s.a, s.a8,
-                       s.as, nullptr, static_cast<bf16*>(out), rows, d, f, ffn_chunks, true,
-                       activation, eps, st);
+                       VP_B(b1), VP_I8(w2), VP_F(s2), VP_B(b2), s.a, s.a8, s.as,
+                       static_cast<bf16*>(out), rows, d, f, ffn_chunks, activation, eps, st);
   return err;
 }
 
@@ -1425,6 +1693,29 @@ int vp_gemm_i8(const void* a, const void* b, const void* a_scale, const void* b_
   p.activation = activation;
   p.col_mul = col_mul;
   p.scaled_cols = scaled_cols;
+  return vp::gemm(p, VP_I8(a), k, VP_I8(b), k, static_cast<cudaStream_t>(stream));
+}
+
+// K9's W1 alone (kI8ActQuant), for measurement and for holding its codes
+// and scales against kI8Act's fp32 output quantized by
+// quant_rows_f32_kernel (chip_smoke.py [gemm-i8]): a [m, k] and b [n, k]
+// int8 with row scales a_scale [m] and column scales b_scale [n] ->
+// codes [m, n] int8 and scales [m, chunks] of act(v + bias) * keep, each
+// row quantized over each of `chunks` column chunks; sync is band_sync's
+// buffer for m rows, zeroed.
+int vp_gemm_i8_act_quant(const void* a, const void* b, const void* a_scale, const void* b_scale,
+                         const void* bias, const void* pads, void* codes, void* scales,
+                         void* sync, int m, int n, int k, int chunks, int activation,
+                         void* stream) {
+  if (chunks < 1 || n % chunks) return cudaErrorInvalidValue;
+  vp::I8Epi p = vp::epi(VP_F(a_scale), 1, VP_F(b_scale), m, n, k, vp::kI8ActQuant);
+  p.bias = VP_B(bias);
+  p.pads = VP_B(pads);
+  p.out = codes;
+  p.activation = activation;
+  p.code_scale = static_cast<float*>(scales);
+  p.sync = vp::band_sync(sync, m, chunks);
+  p.qkc = n / chunks;
   return vp::gemm(p, VP_I8(a), k, VP_I8(b), k, static_cast<cudaStream_t>(stream));
 }
 

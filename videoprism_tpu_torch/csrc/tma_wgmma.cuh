@@ -119,39 +119,24 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 2-D [outer, inner] matrix of `type` with a row pitch of `pitch_bytes`,
-// read in boxes of [box_outer, box_inner] with 128-byte swizzle (a box row
-// is 128 bytes); out-of-bounds reads are zeros.
-bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int inner,
-                int outer, long pitch_bytes, int box_inner, int box_outer) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch_bytes)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
-                             static_cast<cuuint32_t>(box_outer)};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // A 3-D [outer, mid, inner] tensor with byte strides mid_stride and
-// outer_stride, read in boxes of [box_outer, 1, box_inner] with 128-byte
-// swizzle (the box lands in shared memory as a 2-D [box_outer, box_inner]
-// box does); out-of-bounds reads are zeros, so a box that runs past `inner`
-// reads zeros there even where the next `mid` slice follows in memory.
+// outer_stride, read in boxes of [box_outer, box_mid, box_inner] with
+// 128-byte swizzle (a box row is 128 bytes; one of box_outer and box_mid is
+// 1, and the box lands in shared memory as a 2-D box of the other by
+// box_inner does); out-of-bounds reads are zeros, so a box that runs past
+// `inner` (or `mid`) reads zeros there even where the next slice follows in
+// memory.
 bool tensor_map3(CUtensorMap* map, CUtensorMapDataType type, const void* base, int inner,
                  int mid, int outer, long mid_stride, long outer_stride, int box_inner,
-                 int box_outer) {
+                 int box_outer, int box_mid = 1) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(mid),
                               static_cast<cuuint64_t>(outer)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(mid_stride),
                                  static_cast<cuuint64_t>(outer_stride)};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_inner), 1,
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_inner),
+                             static_cast<cuuint32_t>(box_mid),
                              static_cast<cuuint32_t>(box_outer)};
   const cuuint32_t elem[3] = {1, 1, 1};
   return encode(map, type, 3, const_cast<void*>(base), dims, strides, box, elem,

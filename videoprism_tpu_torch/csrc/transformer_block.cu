@@ -28,46 +28,35 @@
 // `chunks` K-slices with a cast after each,
 //   out_0 = cast(a_0 @ W_0 + bias [* keep] + x),
 //   out_c = cast(a_c @ W_c [* keep] + out_{c-1}),
-// one residual GEMM per slice (A read in place with its row pitch, the
-// slice of W a contiguous row block).  K1 and K2 are the one-chunk case of
-// the same entry points.
-// One GEMM that casts its running sum at each chunk boundary in registers
-// would save the chunks' extra passes over the residual; that is left to
-// later work.
+// which one launch of the GEMM's kEpiChain computes (gemm_bf16.cu): each
+// output tile walks all the slices, its running output held in registers
+// and cast at every slice boundary, so K8a and K8b launch as many device
+// kernels as K1 and K2 (four and three).  K1 and K2 are the one-chunk
+// case of the same entry points (kEpiResidual).
 #include "common.cuh"
 
 using vp::bf16;
 
 namespace {
 
-// out_chunks of the residual chain above over a[rows, k_total] (row pitch
-// lda) and w[k_total, d].  Chunks alternate between tmp and out so that the
-// last lands in out; tmp may be null for one chunk.
+// The last product over a[rows, k_total] (row pitch lda) and w[k_total, d]
+// in `chunks` K-slices chained as above, into out.
 cudaError_t residual_chain(const bf16* a, int lda, const bf16* w, const bf16* bias,
-                           const bf16* pads, const bf16* x, bf16* tmp, bf16* out, int rows,
-                           int d, int k_total, int chunks, cudaStream_t s) {
-  const int kc = k_total / chunks;
-  const bf16* resid = x;
-  for (int c = 0; c < chunks; ++c) {
-    bf16* dst = (chunks - 1 - c) % 2 == 0 ? out : tmp;
-    cudaError_t err = vp::launch_gemm_bf16(a + static_cast<size_t>(c) * kc,
-                                           w + static_cast<size_t>(c) * kc * d,
-                                           c == 0 ? bias : nullptr, pads, resid, dst, rows, d, kc,
-                                           lda, vp::kEpiResidual, vp::kActNone, 1.f, 0, s);
-    if (err != cudaSuccess) return err;
-    resid = dst;
-  }
-  return cudaSuccess;
+                           const bf16* pads, const bf16* x, bf16* out, int rows, int d,
+                           int k_total, int chunks, cudaStream_t s) {
+  return vp::launch_gemm_bf16(a, w, bias, pads, x, out, rows, d, k_total, lda,
+                              chunks > 1 ? vp::kEpiChain : vp::kEpiResidual, vp::kActNone, 1.f, 0,
+                              chunks, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// K1 (chunks = 1, tmp may be null) and K8a.
+// K1 (chunks = 1) and K8a.
 int vp_attention_block(const void* x, const void* mask, const void* ln_scale,
                        const void* ln_bias, const void* wqkv, const void* bqkv, const void* wo,
-                       const void* bo, void* h, void* qkv, void* ctx, void* tmp, void* out,
+                       const void* bo, void* h, void* qkv, void* ctx, void* out,
                        int batch, int t, int d, int num_heads, int head_dim, int mask_b,
                        int mask_t, int chunks, float logit_cap, float epsilon, float query_scale,
                        void* stream) {
@@ -81,7 +70,7 @@ int vp_attention_block(const void* x, const void* mask, const void* ln_scale,
   err = vp::launch_gemm_bf16(static_cast<const bf16*>(h), static_cast<const bf16*>(wqkv),
                              static_cast<const bf16*>(bqkv), nullptr, nullptr,
                              static_cast<bf16*>(qkv), rows, 3 * nh, d, d, vp::kEpiQkv,
-                             vp::kActNone, query_scale, nh, s);
+                             vp::kActNone, query_scale, nh, 1, s);
   if (err != cudaSuccess) return err;
   err = vp::launch_capped_attention(static_cast<const bf16*>(qkv), static_cast<const float*>(mask),
                                     static_cast<bf16*>(ctx), batch, t, num_heads, head_dim,
@@ -89,13 +78,13 @@ int vp_attention_block(const void* x, const void* mask, const void* ln_scale,
   if (err != cudaSuccess) return err;
   return residual_chain(static_cast<const bf16*>(ctx), nh, static_cast<const bf16*>(wo),
                         static_cast<const bf16*>(bo), nullptr, static_cast<const bf16*>(x),
-                        static_cast<bf16*>(tmp), static_cast<bf16*>(out), rows, d, nh, chunks, s);
+                        static_cast<bf16*>(out), rows, d, nh, chunks, s);
 }
 
-// K2 (chunks = 1, tmp may be null) and K8b.
+// K2 (chunks = 1) and K8b.
 int vp_ffn_block(const void* x, const void* pads, const void* ln_scale, const void* ln_bias,
                  const void* w1, const void* b1, const void* w2, const void* b2, void* h, void* a,
-                 void* tmp, void* out, int rows, int d, int f, int chunks, int activation,
+                 void* out, int rows, int d, int f, int chunks, int activation,
                  float epsilon, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   const bf16* p = static_cast<const bf16*>(pads);
@@ -106,11 +95,11 @@ int vp_ffn_block(const void* x, const void* pads, const void* ln_scale, const vo
   if (err != cudaSuccess) return err;
   err = vp::launch_gemm_bf16(static_cast<const bf16*>(h), static_cast<const bf16*>(w1),
                              static_cast<const bf16*>(b1), p, nullptr, static_cast<bf16*>(a),
-                             rows, f, d, d, vp::kEpiActKeep, activation, 1.f, 0, s);
+                             rows, f, d, d, vp::kEpiActKeep, activation, 1.f, 0, 1, s);
   if (err != cudaSuccess) return err;
   return residual_chain(static_cast<const bf16*>(a), f, static_cast<const bf16*>(w2),
                         static_cast<const bf16*>(b2), p, static_cast<const bf16*>(x),
-                        static_cast<bf16*>(tmp), static_cast<bf16*>(out), rows, d, f, chunks, s);
+                        static_cast<bf16*>(out), rows, d, f, chunks, s);
 }
 
 }  // extern "C"

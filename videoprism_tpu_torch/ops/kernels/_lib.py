@@ -54,8 +54,8 @@ STATS_LAUNCHES: collections.Counter = collections.Counter()
 # Argument codes of the C entry points: p pointer (or the stream), i int,
 # f float.  The stream is appended by launch().
 _SIGNATURES = {
-    'vp_attention_block': 'ppppppppppppp' 'iiiiiiii' 'fff' 'p',
-    'vp_ffn_block': 'pppppppppppp' 'iiiii' 'f' 'p',
+    'vp_attention_block': 'pppppppppppp' 'iiiiiiii' 'fff' 'p',
+    'vp_ffn_block': 'ppppppppppp' 'iiiii' 'f' 'p',
     'vp_spatial_to_temporal': 'ppppp' 'iiii' 'f' 'p',
     'vp_temporal_to_output': 'pppp' 'iiii' 'f' 'p',
     'vp_layer_norm': 'pppp' 'iii' 'f' 'p',
@@ -67,8 +67,9 @@ _SIGNATURES = {
     'vp_int8_layer_block': 'p' * 21 + 'i' * 11 + 'fff' 'p',
     'vp_int8_qkv_projection': 'p' * 7 + 'iii' 'ff' 'p',
     'vp_int8_out_projection': 'p' * 6 + 'iii' 'p',
-    'vp_gemm_bf16': 'pppppp' 'iiiiii' 'f' 'i' 'p',
+    'vp_gemm_bf16': 'pppppp' 'iiiiii' 'f' 'ii' 'p',
     'vp_gemm_i8': 'p' * 10 + 'iiiii' 'f' 'i' 'p',
+    'vp_gemm_i8_act_quant': 'p' * 9 + 'iiiii' 'p',
     'vp_quant_rows': 'p' * 5 + 'iiii' 'f' 'p',
     'vp_capped_attention': 'ppp' + 'i' * 6 + 'f' 'p',
     'vp_host_probe': 'p' 'ii' 'p',

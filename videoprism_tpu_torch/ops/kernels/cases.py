@@ -726,6 +726,27 @@ def int8_composed(case: Case):
                         x1, summed=True).reshape(x.shape)
 
 
+def ffn_composed(case: Case) -> torch.Tensor:
+  """K2's or K8b's output composed from the primitives in separate
+  launches on the card: K6's row LayerNorm, then ``tb.gemm_bf16`` W1
+  ('act_keep') and W2 ('residual') once per F-slice, each slice's output
+  the next one's residual.  K8b's one chained W2 launch ('chain') makes
+  the same operations in the same order: its output is these bits."""
+  x, pads, ln_s, ln_b, w1, b1, w2, b2 = case.args
+  h = ln_kernel.fused_layer_norm_2d(x, ln_s, ln_b, impl='kernel')
+  a = tb.gemm_bf16(h, w1, epilogue='act_keep', bias=b1, pads=pads,
+                   activation=case.kwargs['activation'])
+  chunks = case.kwargs.get('chunks') or 1
+  kc = a.shape[1] // chunks
+  out = x
+  for c in range(chunks):
+    cols = slice(c * kc, (c + 1) * kc)
+    out = tb.gemm_bf16(a[:, cols].contiguous(), w2[cols].contiguous(),
+                       epilogue='residual', bias=b2 if c == 0 else None,
+                       pads=pads, residual=out)
+  return out
+
+
 def _joined(out) -> torch.Tensor:
   """A kernel's output in fp32; K12a's q, k, v and K7's (ctx,) dq, dk, dv
   flattened end to end."""

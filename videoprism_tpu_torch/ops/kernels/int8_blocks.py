@@ -41,7 +41,10 @@ chip: K12a and K12b are one launch each, K11 six at any chunk counts
 (q|k|v, K1's core, Wo, W1, the quantizer of the hidden activation, W2).
 Those rows are at most 2048 codes (16 k-tiles of 128) in chunks of at most
 1536, which every model's D and N*H are.  The chains K9 and K10 quantize
-with the standalone quantizer and read the codes by TMA.
+with the standalone quantizer and read the codes by TMA; K9's W1 then
+quantizes its hidden activation per F-chunk in its own epilogue (its tiles
+meet their rows' maxima in device memory, under a cooperative launch), so
+K9 is two device kernels and one per F-chunk.
 
 The kernels read their int8 weights K-major (the s8 ``wgmma`` takes no
 transposed operand): q|k|v as one [3*N*H', D] matrix, so that K10, K11
@@ -312,10 +315,11 @@ def int8_ffn_block_chunked(
                 and s2.shape == (d,) and b2.shape == (d,), 'FFN operand')
   _check_multiple(D=d, F=f, F_chunk=f // chunks)
   dev = x.device
+  _check_band_meeting(rows, f, chunks, dev)
   out = torch.empty_like(x)
   _lib.launch('vp_int8_ffn_block', dev, x, paddings, ln_scale, ln_bias, w1, s1,
               b1, w2, s2, b2, *_front_scratch(rows, d, dev),
-              torch.empty((rows, f), dtype=torch.float32, device=dev),
+              _sync_scratch(rows, chunks, dev),
               torch.empty((rows, f), dtype=torch.int8, device=dev),
               torch.empty((rows, chunks), dtype=torch.float32, device=dev),
               torch.empty_like(x) if chunks > 1 else None, out, rows, d, f,
@@ -365,6 +369,45 @@ def _check_attention(x, mask, ln_scale, ln_bias, kmajor, so, bo, num_heads,
                 and bo.shape == (d,), 'attention weight')
   _check_multiple(D=d, NH=nh, head_group=nh // chunks)
   _check_core(t, hp)
+
+
+@functools.cache
+def _sm_count(index: int | None) -> int:
+  return torch.cuda.get_device_properties(
+      torch.cuda.current_device() if index is None else index
+  ).multi_processor_count
+
+
+def act_quant_grid(rows: int, f: int, chunks: int, dev) -> tuple[int, int]:
+  """(persistent grid, tiles of a band) of K9's W1 launch: 128 x 128
+  tiles, a band 128 rows by one of the ``chunks`` F-chunks, at most one
+  block a SM."""
+  band = -(-(f // chunks) // 128)
+  return min(-(-rows // 128) * chunks * band, _sm_count(dev.index)), band
+
+
+def _check_band_meeting(rows: int, f: int, chunks: int, dev) -> None:
+  """K9's W1 quantizes its hidden activation in its epilogue: the tiles of
+  one band meet their rows' maxima in device memory and wait for each
+  other, which cannot deadlock where every block of its persistent grid
+  is resident at once and 2 x the grid exceeds a band's tiles
+  (``csrc/int8_blocks.cu`` ``gemm``).  The launch is cooperative: it
+  fails, never hangs, where the blocks are not all resident."""
+  grid, band = act_quant_grid(rows, f, chunks, dev)
+  sms = _sm_count(dev.index)
+  if 2 * grid <= band:
+    raise ValueError(
+        f'K9 at {rows} rows, F-chunk {f // chunks}: W1 needs every block of '
+        f'its grid of {grid} (at most one on each of {sms} SMs) resident at '
+        f'once and 2 x the grid above the {band} tiles of a band')
+
+
+def _sync_scratch(rows: int, chunks: int, dev) -> torch.Tensor:
+  """K9's W1 meets its rows' maxima in: row_max [rows, chunks] fp32 and a
+  counter per band, [ceil(rows / 128), chunks] (``csrc/int8_blocks.cu``
+  ``band_sync``), zeroed on the card by the quantizer in front."""
+  return torch.empty(rows * chunks + -(-rows // 128) * chunks,
+                     dtype=torch.int32, device=dev)
 
 
 def _front_scratch(rows: int, d: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
@@ -743,6 +786,41 @@ def gemm_i8(a: torch.Tensor, b: torch.Tensor, *, epilogue: str = 'int32',
               GEMM_I8_EPILOGUES[epilogue], ACTIVATIONS.get(activation, 0),
               col_scale, scaled_cols)
   return out
+
+
+def gemm_i8_act_quant(a: torch.Tensor, b: torch.Tensor, *, chunks: int,
+                      a_scale: torch.Tensor, b_scale: torch.Tensor,
+                      bias: torch.Tensor | None = None,
+                      pads: torch.Tensor | None = None,
+                      activation: str = 'gelu'
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+  """K9's W1 alone, for measurement and for holding it to its composition
+  (:func:`gemm_i8` 'act_keep', then :func:`quantize_rows` per chunk): the
+  hidden activation ``act(v + bias) x keep`` of ``a int8 [M, K] @ b int8
+  [N, K]^T`` quantized per row over each of ``chunks`` column chunks in
+  the product's epilogue -> (codes int8 [M, N], scales fp32 [M,
+  chunks]).  CUDA tensors only."""
+  m, k = a.shape
+  n = b.shape[0]
+  _lib.check(a.is_cuda, 'gemm_i8_act_quant runs on CUDA tensors only')
+  operands = dict(a=a, b=b, a_scale=a_scale, b_scale=b_scale, bias=bias,
+                  pads=pads)
+  _lib.check_tensors(a.device, int8=('a', 'b'), fp32=('a_scale', 'b_scale'),
+                     **{key: t for key, t in operands.items()
+                        if t is not None})
+  _lib.check(b.shape[1] == k and k % 16 == 0 and chunks >= 1
+             and n % chunks == 0 and (n // chunks) % 16 == 0,
+             f'a {tuple(a.shape)} @ b {tuple(b.shape)}^T in {chunks} chunks: '
+             'K must agree, K and the chunks be multiples of 16')
+  _check_activation(activation)
+  _check_band_meeting(m, n, chunks, a.device)
+  sync = _sync_scratch(m, chunks, a.device).zero_()
+  codes = torch.empty((m, n), dtype=torch.int8, device=a.device)
+  scales = torch.empty((m, chunks), dtype=torch.float32, device=a.device)
+  _lib.launch('vp_gemm_i8_act_quant', a.device, a, b, a_scale, b_scale, bias,
+              pads, codes, scales, sync, m, n, k, chunks,
+              ACTIVATIONS[activation])
+  return codes, scales
 
 
 def quantize_rows(x: torch.Tensor, *, chunks: int = 1,

@@ -171,7 +171,7 @@ def check_partial_out(partial_out: bool) -> None:
         'see ROADMAP.md, queue 1 items 3 and 13')
 
 
-GEMM_EPILOGUES = {'qkv': 0, 'act_keep': 1, 'residual': 2}
+GEMM_EPILOGUES = {'qkv': 0, 'act_keep': 1, 'residual': 2, 'chain': 3}
 
 
 def gemm_bf16(a: torch.Tensor, b: torch.Tensor, *, epilogue: str = 'qkv',
@@ -179,29 +179,36 @@ def gemm_bf16(a: torch.Tensor, b: torch.Tensor, *, epilogue: str = 'qkv',
               pads: torch.Tensor | None = None,
               residual: torch.Tensor | None = None,
               activation: str | None = None, col_scale: float = 1.0,
-              scaled_cols: int = 0) -> torch.Tensor:
-  """The product stage of K1, K2, K8a and K8b alone, for measurement:
-  ``epilogue(a [M, K] @ b [K, N])`` -> [M, N] bf16 through the hand-written
-  wgmma GEMM (``csrc/gemm_bf16.cu``), with the blocks' epilogues ('qkv':
-  + bias, x ``col_scale`` on the first ``scaled_cols`` columns;
-  'act_keep': act(+ bias) x keep; 'residual': (+ bias) [x keep] +
-  residual).  CUDA tensors only: the blocks' twins are its plain
-  versions."""
+              scaled_cols: int = 0, chunks: int = 1) -> torch.Tensor:
+  """The product stage of K1, K2, K8a and K8b alone, for measurement and
+  for composing the chained blocks from separate launches: ``epilogue(a
+  [M, K] @ b [K, N])`` -> [M, N] bf16 through the hand-written wgmma GEMM
+  (``csrc/gemm_bf16.cu``), with the blocks' epilogues ('qkv': + bias, x
+  ``col_scale`` on the first ``scaled_cols`` columns; 'act_keep': act(+
+  bias) x keep, GELU or ReLU; 'residual': (+ bias) [x keep] + residual;
+  'chain': 'residual' over ``chunks`` K-slices, the bias in the first, the
+  output cast after each and the next slice's residual, in one launch).
+  CUDA tensors only: the blocks' twins are its plain versions."""
   m, k = a.shape
   n = b.shape[1]
   _lib.check(a.is_cuda, 'gemm_bf16 runs on CUDA tensors only')
   operands = dict(a=a, b=b, bias=bias, pads=pads, residual=residual)
   _lib.check_tensors(a.device, **{key: t for key, t in operands.items()
                                   if t is not None})
-  _lib.check(b.shape[0] == k and k % 8 == 0 and n % 8 == 0,
-             f'a {tuple(a.shape)} @ b {tuple(b.shape)}: K and N must agree '
-             'and be multiples of 8')
-  _lib.check(epilogue != 'residual' or residual is not None,
-             "epilogue 'residual' needs a residual")
+  _lib.check(b.shape[0] == k and n % 8 == 0 and chunks >= 1
+             and k % chunks == 0 and (k // chunks) % 8 == 0,
+             f'a {tuple(a.shape)} @ b {tuple(b.shape)} in {chunks} slices: '
+             'K must agree, N and the slices be multiples of 8')
+  _lib.check(chunks == 1 or epilogue == 'chain',
+             f"{chunks} K-slices go with epilogue 'chain'")
+  _lib.check(epilogue not in ('residual', 'chain') or residual is not None,
+             f'epilogue {epilogue!r} needs a residual')
+  _lib.check(epilogue != 'act_keep' or activation in ACTIVATIONS,
+             "epilogue 'act_keep' takes activation 'gelu' or 'relu'")
   out = torch.empty((m, n), dtype=a.dtype, device=a.device)
   _lib.launch('vp_gemm_bf16', a.device, a, b, bias, pads, residual, out, m, n,
               k, k, GEMM_EPILOGUES[epilogue],
-              ACTIVATIONS.get(activation, 0), col_scale, scaled_cols)
+              ACTIVATIONS.get(activation, 0), col_scale, scaled_cols, chunks)
   return out
 
 
@@ -233,10 +240,9 @@ def _launch_attention(x, mask, ln_scale, ln_bias, wqkv, bqkv, wo, bo, *,
   h = torch.empty((b * t, d), dtype=x.dtype, device=x.device)
   qkv = torch.empty((b * t, 3 * nh), dtype=x.dtype, device=x.device)
   ctx = torch.empty((b * t, nh), dtype=x.dtype, device=x.device)
-  tmp = torch.empty_like(x) if chunks > 1 else None
   out = torch.empty_like(x)
   _lib.launch('vp_attention_block', x.device, x, mask, ln_scale, ln_bias,
-              wqkv, bqkv, wo, bo, h, qkv, ctx, tmp, out, b, t, d, num_heads,
+              wqkv, bqkv, wo, bo, h, qkv, ctx, out, b, t, d, num_heads,
               dim_per_head, mask.shape[0], mask.shape[1], chunks,
               float(logit_cap), epsilon, float(query_scale))
   return out
@@ -409,17 +415,16 @@ def _launch_ffn(x, paddings, ln_scale, ln_bias, w1, b1, w2, b2, *, chunks,
              'FFN operand shapes do not match x')
   _lib.check(d % 8 == 0 and f % 8 == 0,
              f'model dim {d} and hidden dim {f} must be multiples of 8')
-  # A chunk's F-slice is read in place from a [rows, F]: its offset must
-  # keep 16-byte rows (TMA's pitch and alignment).  The GEMM's loads
-  # zero-fill a slice that is not a multiple of its 64-deep tile.
+  # The chained product reads each F-slice of a [rows, F] in place: its
+  # width must keep 16-byte rows (TMA's pitch and alignment).  The GEMM's
+  # loads zero-fill a slice that is not a multiple of its 64-deep tile.
   _lib.check((f // chunks) % 8 == 0,
              f'{chunks} chunks of hidden dim {f} must be multiples of 8')
   h = torch.empty_like(x)
   a = torch.empty((rows, f), dtype=x.dtype, device=x.device)
-  tmp = torch.empty_like(x) if chunks > 1 else None
   out = torch.empty_like(x)
   _lib.launch('vp_ffn_block', x.device, x, paddings, ln_scale, ln_bias, w1,
-              b1, w2, b2, h, a, tmp, out, rows, d, f, chunks,
+              b1, w2, b2, h, a, out, rows, d, f, chunks,
               ACTIVATIONS[activation], epsilon)
   return out
 
