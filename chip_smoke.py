@@ -10,7 +10,8 @@ failure exits non-zero and prints no result):
                   process per source, all at once; build time, each
                   kernel's registers, shared memory and spills (none
                   allowed in K5's and K7's kernels up to H = 96, nor in
-                  any instantiation of the two GEMMs), and the
+                  any instantiation of the two GEMMs or of K1's resident
+                  attention core), and the
                   longest sequence K1's attention core takes per head dim
                   (it streams K and V: no limit below the route's 1024);
      host         a K6 call's host time by part (use_kernel,
@@ -66,7 +67,10 @@ failure exits non-zero and prints no result):
                   call's (K6: F.layer_norm, by events and by the
                   profiler; int8 kernels: torch._int_mm over their int8
                   products; K7: SDPA's uncapped forward + backward, a
-                  yardstick); the int8 blocks torch.equal to their
+                  yardstick); K1's attention core alone at K8a's two
+                  shapes, µs a call on the device beside K8a, with its
+                  own bound and its launches per vc giant request; the
+                  int8 blocks torch.equal to their
                   composition from the primitives in separate launches
                   (the quantizer, the int8 GEMM with the fp32 chunk sum
                   through a buffer, K1's core): K11 at the paths' three
@@ -169,8 +173,9 @@ directory under build/ and removed.  Counts of kernel launches are set to 0
 before each path's phase (5, 7, 9, 10, 12, 13, 14 and 16) and read after
 it.
 ``python3 chip_smoke.py --outputs save DIR`` / ``--outputs against DIR``
-saves the fused blocks' outputs at the [kernels] shapes, or holds this
-tree's to saved ones (``compare_outputs``).
+saves the fused blocks' outputs at the [kernels] shapes (and K1, K8a and
+K10 at giant's head dim: ``block_outputs``), or holds this tree's to saved
+ones (``compare_outputs``).
 The line before the last is the per-kernel JSON record (K7 twice: computing
 its own row statistics, its record since it was ported, and with
 "variant": "stats from K5", the train step's route); the last line is
@@ -309,6 +314,11 @@ K7_STATS = 'stats from K5'
 # K5's and K7's kernels, none of which may spill registers at H <= 96.
 FLASH_KERNELS = ('flash_attention_kernel', 'flash_bwd_query_kernel',
                  'flash_bwd_key_kernel')
+# Kernels none of whose instantiations may spill registers: both GEMMs,
+# and K1's resident attention core at giant's head dims (16 warps an SM
+# hold it to 128 registers).
+NO_SPILL_KERNELS = ('gemm_i8_kernel', 'gemm_bf16_kernel',
+                    'resident_attention_kernel')
 # The capped weight of every attention kernel (csrc/mma_sync.cuh) against
 # fp64 over l in [-4 cap, 4 cap]: relative error of exp(cap tanh(l / cap))
 # and absolute error of 1 - tanh^2.
@@ -316,6 +326,7 @@ WEIGHT_RTOL = 2e-5
 TANH_GRAD_ATOL = 2e-5
 DEVICE_KERNELS = ('ln_rows_kernel', 'ln_rows_stream_kernel',
                   'gemm_bf16_kernel', 'capped_attention_kernel',
+                  'resident_attention_kernel',
                   'flash_attention_kernel', 'quant_rows_kernel',
                   'quant_rows_f32_kernel', 'quant_rows_stream_kernel',
                   'gemm_i8_kernel', 'flash_bwd_query_kernel',
@@ -481,6 +492,11 @@ def phase_build() -> None:
       if kernel == 'gemm_bf16_kernel':   # <epilogue, activation, pads, bias>
         args = re.search(r'I((?:L[ib]\d+E)+)E', line).group(1)
         kernel += '<' + ', '.join(re.findall(r'L[ib](\d+)E', args)) + '>'
+      elif kernel == 'resident_attention_kernel':   # <HT, NV, packed, capped>
+        tiles, nv, packed, capped = re.findall(
+            r'L[ib](\d+)E', re.search(r'I((?:L[ib]\d+E)+)E', line).group(1))
+        kernel += (f'<{tiles}, {nv}, {"T <= 16" if packed == "1" else "T > 16"}'
+                   f', {"capped" if capped == "1" else "no cap"}>')
       elif kernel and ints:
         kernel += f'<{", ".join(ints)}' + (
             '' if template.group(2) is None
@@ -494,7 +510,7 @@ def phase_build() -> None:
       spills = (f'stack frame {m.group(1)} B, spills {m.group(2)}/'
                 f'{m.group(3)} B')
       if ((kernel.startswith(FLASH_KERNELS) and ht <= 6)
-          or kernel.startswith(('gemm_i8_kernel', 'gemm_bf16_kernel'))) and (
+          or kernel.startswith(NO_SPILL_KERNELS)) and (
               int(m.group(2)) or int(m.group(3))):
         spilled.append(kernel)
     m = re.search(r'Used (\d+) registers.*?(?:(\d+) bytes smem)?$', line)
@@ -502,8 +518,9 @@ def phase_build() -> None:
       print(f'[build] {kernel}: {m.group(1)} registers, static smem '
             f'{m.group(2) or 0} B, {spills}')
       kernel = None
-  check(not spilled, 'K5 / K7 (at H <= 96) or a GEMM instantiation (beside '
-        f'its in-flight products) spill registers: {spilled}')
+  check(not spilled, 'K5 / K7 (at H <= 96), a GEMM instantiation (beside '
+        'its in-flight products) or the resident attention core spill '
+        f'registers: {spilled}')
   for h in (64, 88):
     cap = _lib.max_attention_t(h)
     check(cap >= transformer_lib.MAX_FUSED_ATTENTION_T,
@@ -1058,6 +1075,41 @@ def _check_bwd_statistics(device) -> None:
     check(same, f'K7 with K5\'s statistics differs at {case.label}')
 
 
+# K1's attention core launches per vc giant request: one per K8a call,
+# 40 over the spatial stack (T = 256) and 4 over the temporal (T = 8).
+CORE_LAUNCHES = {256: 40, 8: 4}
+
+
+def _time_core(case: cases_lib.Case, block_dev_ms: float) -> None:
+  """[kernels]: the attention core alone (``i8.capped_core``) on a seeded
+  q|k|v of a K8a case's shape and on its mask, beside the composed K8a:
+  device µs per call, events, its own bound (q|k|v and the mask read once,
+  ctx written once; the two products at the bf16 peak) and its launches
+  per vc giant request."""
+  x, mask = case.args[:2]
+  b, t, _ = x.shape
+  heads, hd = case.kwargs['num_heads'], case.kwargs['dim_per_head']
+  gen = torch.Generator(device=x.device).manual_seed(0)
+  qkv = torch.randn((b * t, 3 * heads * hd), generator=gen,
+                    device=x.device).to(torch.bfloat16)
+  qkv[:, :heads * hd] *= case.kwargs['query_scale']
+  core = lambda: i8.capped_core(qkv, mask, batch=b, num_heads=heads,
+                                head_dim=hd,
+                                logit_cap=case.kwargs['logit_cap'])
+  ms = cuda_ms(core, warmup=3, iters=20)
+  dev_ms = device_ms(core, iters=10)
+  qkv_bytes = qkv.numel() * qkv.element_size()   # ctx: a third of it
+  nbytes = qkv_bytes + qkv_bytes // 3 + mask.numel() * mask.element_size()
+  bytes_s = nbytes / cases_lib.PEAK_BYTES
+  ops_s = 4 * b * heads * t * t * hd / cases_lib.PEAK_BF16_FLOPS
+  print(f'[kernels] time core of {case.label}: {1e3 * dev_ms:.2f} us a call '
+        f'on the device ({1e3 * ms:.2f} by events), bound '
+        f'{1e6 * max(bytes_s, ops_s):.2f} us '
+        f'({"bytes" if bytes_s >= ops_s else "operations"}), '
+        f'{CORE_LAUNCHES.get(t, 0)} launches per vc giant request; K8a '
+        f'{1e3 * block_dev_ms:.2f} us on the device')
+
+
 def variant(case: cases_lib.Case) -> str | None:
   """The record a case's numbers go to beside its kernel's: K7 given K5's
   row statistics (the train step's route) is kept apart from K7 computing
@@ -1189,6 +1241,8 @@ def phase_kernels(device) -> dict[tuple[str, str | None], dict]:
     print(f'[kernels] time {case.kernel} {case.label}: kernel {ms:.4f} ms '
           f'(device {dev_ms:.4f} ms), plain twin {plain_ms:.4f} ms, library '
           f'{library}, bound {bound_ms:.4f} ms ({bound_by})')
+    if case.kernel == 'fused_attention_block_chunked':
+      _time_core(case, dev_ms)
     rec = record[case.kernel, variant(case)]
     for key, value in (('ms', ms), ('device_ms', dev_ms),
                        ('plain_ms', plain_ms),
@@ -2172,8 +2226,10 @@ def phase_times(device, model, params, clip_model, clip_params, vc_runs,
 
 def block_outputs(device) -> dict[str, torch.Tensor]:
   """The fused blocks' outputs (K1, K2, K8a, K8b, K9-K12b) through their
-  wrappers on the seeded inputs of ``cases`` at the [kernels] shapes, by
-  case, on the host."""
+  wrappers on the seeded inputs of ``cases`` at the [kernels] shapes (K8a
+  and K10 also at giant's shapes with paddings and without a cap, K1 also
+  at giant's head dim, T = 1024 and ragged T, and at H = 96), by case, on
+  the host."""
   attention, ffn = cases_lib.attention_case, cases_lib.ffn_case
   int8_ffn = cases_lib.int8_ffn_case
   outputs = {}
@@ -2187,6 +2243,16 @@ def block_outputs(device) -> dict[str, torch.Tensor]:
                 device=device),
       attention(512, 8, 1408, 16, 88, cap=50.0, padded=False, chunks=2,
                 device=device),
+      attention(16, 256, 1408, 16, 88, cap=0.0, padded=True, chunks=2,
+                device=device),
+      attention(512, 8, 1408, 16, 88, cap=0.0, padded=True, chunks=2,
+                device=device),
+      # K1 at giant's head dim: the [gate] layer (T = 1024, the streamed
+      # core), ragged T through the resident core, and H = 96.
+      attention(2, 1024, 1408, 16, 88, cap=50.0, padded=True, device=device),
+      *(attention(6, t, 704, 8, 88, cap=cap, padded=True, device=device)
+        for t in (12, 40, 100, 200) for cap in (50.0, 0.0)),
+      attention(6, 200, 768, 8, 96, cap=50.0, padded=True, device=device),
       ffn(4096, 1024, 4096, activation='gelu', padded=True, chunks=2,
           device=device),
       ffn(4096, 1408, 6144, activation='gelu', padded=True, chunks=4,
@@ -2199,6 +2265,11 @@ def block_outputs(device) -> dict[str, torch.Tensor]:
                device=device),
       cases_lib.int8_attention_case(32, 256, 768, 12, 64, cap=50.0,
                                     padded=True, chunks=2, device=device),
+      # K10 at the int8 giant encoder's spatial stack: 2 head groups of 8
+      # x 88, for two clips.
+      *(cases_lib.int8_attention_case(16, 256, 1408, 16, 88, cap=cap,
+                                      padded=True, chunks=2, device=device)
+        for cap in (50.0, 0.0)),
       cases_lib.int8_layer_case(512, 16, 768, 12, 64, 3072, cap=50.0,
                                 padded=True, chunks=(2, 2), device=device),
       *cases_lib.int8_projection_cases(8192, 768, 768, device=device)):

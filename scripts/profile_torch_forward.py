@@ -46,7 +46,8 @@ from videoprism_tpu_torch.train import train_step as train_lib  # noqa: E402
 
 # Device kernels of csrc/ (the rest are PyTorch's and its libraries').
 HAND_WRITTEN = ('ln_rows_kernel', 'ln_rows_stream_kernel', 'gemm_bf16_kernel',
-                'capped_attention_kernel', 'flash_attention_kernel',
+                'capped_attention_kernel', 'resident_attention_kernel',
+                'flash_attention_kernel',
                 'flash_bwd_query_kernel', 'flash_bwd_key_kernel',
                 'quant_rows_kernel', 'quant_rows_f32_kernel',
                 'quant_rows_stream_kernel', 'gemm_i8_kernel')

@@ -1,8 +1,9 @@
 """Hand-written Hopper kernels against their plain twins, on the card.
 
-Marked ``gpu``; every test skips where ``torch.cuda.is_available()`` is
-false.  The file imports no JAX, so it also runs where the suite's
-conftest (which imports JAX) cannot:
+Marked ``gpu``; where ``torch.cuda.is_available()`` is false the whole
+module skips (one skip at collection, no items: the suite's item count is
+kept low on purpose, see below).  The file imports no JAX, so it also runs
+where the suite's conftest (which imports JAX) cannot:
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q --noconftest
 
@@ -40,11 +41,12 @@ from videoprism_tpu_torch.train import train_step as train_lib
 
 pytestmark = pytest.mark.gpu
 
+if not torch.cuda.is_available():
+  pytest.skip('needs a CUDA device', allow_module_level=True)
+
 
 @pytest.fixture
 def device():
-  if not torch.cuda.is_available():
-    pytest.skip('needs a CUDA device')
   return torch.device('cuda', 0)
 
 
@@ -130,15 +132,20 @@ def test_kernels_at_the_paths_and_ragged_shapes(device):
 
 def test_chunked_kernels(device):
   """K8a at narrow widths (head groups of 48 columns, not a multiple of the
-  GEMM's 32-deep tile; 4 groups; giant's 88-wide heads) and at giant's
-  spatial and temporal shapes; K8b with ragged rows and F-slices of 136
-  and 64 columns, and at large's and giant's rows."""
+  GEMM's 32-deep tile; 4 groups; giant's 88-wide heads and 96-wide ones,
+  through the resident core at T <= 16, ragged T and T = 256) and at
+  giant's spatial and temporal shapes; K8b with ragged rows and F-slices of
+  136 and 64 columns, and at large's and giant's rows."""
   cases = []
-  for heads, head_dim, chunks in ((4, 24, 2), (4, 32, 4), (2, 88, 2)):
-    for cap in (50.0, 0.0):
-      cases.append(cases_lib.attention_case(6, 40, 136, heads, head_dim,
-                                            cap=cap, padded=True,
-                                            chunks=chunks, device=device))
+  for heads, head_dim, chunks, lengths in ((4, 24, 2, (40,)),
+                                           (4, 32, 4, (40,)),
+                                           (2, 88, 2, (12, 40, 200)),
+                                           (2, 96, 2, (40, 256))):
+    for t in lengths:
+      for cap in (50.0, 0.0):
+        cases.append(cases_lib.attention_case(6, t, 136, heads, head_dim,
+                                              cap=cap, padded=True,
+                                              chunks=chunks, device=device))
   for f, chunks in ((272, 2), (256, 4)):
     cases.append(cases_lib.ffn_case(200, 136, f, activation='gelu',
                                     padded=True, chunks=chunks,

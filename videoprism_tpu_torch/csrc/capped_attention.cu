@@ -41,7 +41,9 @@
 // own pair's 16 columns in the softmax (n-tiles without them are skipped by a
 // warp-uniform test), so a block is eight busy warps.  The head dim is
 // zero-padded to a multiple of 16 inside (giant's 88 runs as 96); ragged T is
-// zero-filled and left out of the softmax.
+// zero-filled and left out of the softmax.  At head dims 88 and 96 and T <=
+// 256 (the vc giant stacks) launch_capped_attention takes
+// resident_attention.cu instead, whose K and V stay in shared memory.
 #include "mma_sync.cuh"
 
 namespace vp {
@@ -356,6 +358,9 @@ cudaError_t launch_capped_attention(const bf16* qkv, const float* mask, bf16* ct
                                     int T, int num_heads, int head_dim, int mask_b, int mask_t,
                                     float logit_cap, cudaStream_t stream) {
   if (T <= 0 || head_dim <= 0 || head_dim % 8) return cudaErrorInvalidValue;
+  if (resident_attention_takes(T, head_dim))
+    return launch_resident_attention(qkv, mask, ctx, batch, T, num_heads, head_dim, mask_b, mask_t,
+                                     logit_cap, stream);
 #define VP_ATTN_CASE(ht)                                                                    \
   case ht:                                                                                  \
     return logit_cap > 0.f ? launch<ht, true>(qkv, mask, ctx, batch, T, num_heads, head_dim, \

@@ -147,4 +147,12 @@ cudaError_t launch_capped_attention(const bf16* qkv, const float* mask, bf16* ct
                                     int T, int num_heads, int head_dim, int mask_b, int mask_t,
                                     float logit_cap, cudaStream_t stream);
 
+// The same core at head dims 88 and 96 and T <= 256, K and V held whole in
+// shared memory (resident_attention.cu); launch_capped_attention takes it
+// wherever resident_attention_takes(T, head_dim).
+bool resident_attention_takes(int T, int head_dim);
+cudaError_t launch_resident_attention(const bf16* qkv, const float* mask, bf16* ctx, int batch,
+                                      int T, int num_heads, int head_dim, int mask_b, int mask_t,
+                                      float logit_cap, cudaStream_t stream);
+
 }  // namespace vp
